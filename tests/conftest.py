@@ -44,3 +44,9 @@ except (OSError, subprocess.TimeoutExpired):
 @pytest.fixture
 def rng():
     return np.random.default_rng(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and nvcc (skipped without a "
+        "CUDA device)")

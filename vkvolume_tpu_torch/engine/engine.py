@@ -1,0 +1,398 @@
+"""Engine — the application orchestrator, port of
+``vkvolume_tpu/engine/engine.py`` restricted to the main path.
+
+Owns the volumes and their acceleration maps, rebuilds the occupancy and
+distance maps on every transfer-function edit (src/volume_render.cpp:392-445)
+and renders frames through the brick sweep and the two-pass warp. All work
+runs on the engine's ``device``; the kernels run on "cuda", their plain
+PyTorch versions on "cpu".
+
+Not ported yet (each raises NotImplementedError naming its ROADMAP item):
+the per-ray marcher and the XLA-sweep fallbacks (mixed-sign views, plans
+without a brick sweep or a two-pass warp), the isotropic distance map
+(skipmode 2), the Test diagnostics, texture TFs, depth attachments, edge
+repair, the scene pass and the accel cache. The TPU workarounds (compile
+retries, watchdog banding, prewarm, frozen plan tiers, A/B environment
+knobs) are left out by design.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from ..accel.distance_cuda import anisotropic_distance_cuda
+from ..accel.gradient import gradient_map
+from ..accel.occupancy import (_occupancy_u8, _tf_thresholds,
+                               occupied_voxel_count)
+from ..options import RenderOptions, SkippingType, Test
+from ..render import sweep_frame
+from ..render.ray_setup import RenderOutput, make_uniforms, transpose_for_axis
+from ..tf.transfer_function import tf_params
+from .volume import Volume
+
+
+def _octant_composite(maps: torch.Tensor, kz: float, ky: float,
+                      kx: float) -> torch.Tensor:
+    """Per-cell octant-selected skip map for a pinhole camera.
+
+    The reference picks the distance map per ray by the ray's direction
+    octant (volume_render.frag:209). For a pinhole camera that octant is a
+    function of which side of the camera's three axis planes a cell lies on
+    (idx = (z<kz) + 2*(y<ky) + 4*(x<kx)), so stitching the 8 maps along
+    those planes reproduces the per-ray selection for every ray at once.
+    ``kz/ky/kx``: the camera position in map-cell coordinates. A cell that
+    straddles a camera plane takes the elementwise min of its two sides."""
+    def combine(a, b, n, k, axis):
+        # a = map for coord < plane (d<0 bit set), b = for coord >= plane.
+        shape = [1, 1, 1]
+        shape[axis] = n
+        c = torch.arange(n, device=a.device).reshape(shape)
+        kc = int(np.floor(np.float32(k)))
+        out = torch.where(c < kc, a, b)
+        return torch.where(c == kc, torch.minimum(a, b), out)
+
+    mz, my, mx = maps.shape[1:]
+    # idx = 4*bx + 2*by + bz; combine z pairs, then y, then x.
+    z = [combine(maps[i + 1], maps[i], mz, kz, 0) for i in (0, 2, 4, 6)]
+    y = [combine(z[2 * j + 1], z[2 * j], my, ky, 1) for j in (0, 1)]
+    return combine(y[1], y[0], mx, kx, 2)
+
+
+def _build_maps_fused(density, gradient, ti: int, tg: int, *, map_shape_zyx,
+                      st: SkippingType, use_gradient: bool) -> torch.Tensor:
+    """Occupancy + distance transform of one TF edit: (N, mz, my, mx) u8,
+    N = 8 for the anisotropic maps, 1 (the occupancy map) for BLOCK/NONE."""
+    occ = _occupancy_u8(density, gradient if use_gradient else None,
+                        map_shape_zyx, ti, tg)
+    if st == SkippingType.ANISOTROPIC_DISTANCE:
+        return anisotropic_distance_cuda(occ)
+    if st == SkippingType.DISTANCE:
+        raise NotImplementedError(
+            "isotropic distance map (skipmode 2, distance_pallas."
+            "_scan_relax_kernel, K5): ROADMAP queue B, item 5")
+    return occ[None]
+
+
+@dataclasses.dataclass
+class UpdateStats:
+    """The reference log lines' metrics (src/volume_render.cpp:418, 430).
+    In benchmark mode ``map_update_ms`` is the synced per-build time."""
+
+    occupied_voxel_percent: float | None = None
+    count_ms: float | None = None
+    map_update_ms: float | None = None
+    gradient_ms: float | None = None
+
+
+class Engine:
+    def __init__(self, options: RenderOptions | None = None,
+                 benchmark_mode: bool = False, renderer: str = "pallas",
+                 device: str | torch.device = "cpu"):
+        """``renderer``: only "pallas" (the brick sweep + two-pass warp
+        path) is ported. ``device``: where volumes, maps and frames live."""
+        if renderer != "pallas":
+            raise NotImplementedError(
+                f"renderer {renderer!r} (marcher / XLA sweep): ROADMAP "
+                "queue A, items 10 and 13")
+        self.options = options or RenderOptions()
+        self.benchmark_mode = benchmark_mode
+        self.renderer = renderer
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        if benchmark_mode:
+            # Benchmark mode forces (src/volume_render.cpp:177-183).
+            self.options.clip_distance = 1.0
+            self.options.early_ray_termination = False
+            self.options.test = Test.NUM_TEXTURE_SAMPLES
+        self.volumes: list[Volume] = []
+        self.renderer_counts = {"pallas": 0, "sweep": 0, "marcher": 0}
+        self.last_renderer = None
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # ---- setup ----------------------------------------------------------
+
+    def add_volume(self, volume: Volume) -> UpdateStats:
+        """Load path: gradient map, then the first TF update
+        (src/volume_render.cpp:186-242)."""
+        if volume.device != self.device:
+            raise ValueError(f"volume on {volume.device}, engine on "
+                             f"{self.device}")
+        self.volumes.append(volume)
+        stats = UpdateStats()
+        if volume.options.use_precomputed_gradient:
+            t0 = time.perf_counter()
+            volume.gradient = gradient_map(
+                volume.density, 1.0, use_gradient=volume.options.use_gradient)
+            self._sync()
+            stats.gradient_ms = (time.perf_counter() - t0) * 1e3
+        tf_stats = self.update_transfer_function(volume)
+        stats.occupied_voxel_percent = tf_stats.occupied_voxel_percent
+        stats.count_ms = tf_stats.count_ms
+        stats.map_update_ms = tf_stats.map_update_ms
+        return stats
+
+    def _tf(self, volume: Volume):
+        o = volume.options
+        return tf_params(
+            intensity_min=o.intensity_min, intensity_max=o.intensity_max,
+            gradient_min=o.gradient_min, gradient_max=o.gradient_max,
+            sampling_factor=o.sampling_factor,
+            voxel_alpha_factor=o.voxel_alpha_factor)
+
+    def _slab_oversample(self, volume: Volume, vol_t_shape, tf) -> float:
+        """Slabs per principal-axis voxel plane (RenderOptions.slab_density):
+        "ref" matches the reference's per-ray step density 1/(dim_max·sf);
+        "auto" pays that (× grad_density_mult) only for gradient TFs."""
+        sf = float(volume.options.sampling_factor)
+        mode = self.options.slab_density
+        mult = 1.0
+        if mode == "auto":
+            if tf.use_gradient:
+                mode = "ref"
+                mult = float(self.options.grad_density_mult)
+            else:
+                mode = "axis"
+        if mode == "ref":
+            return sf * max(vol_t_shape) / vol_t_shape[0] * mult
+        return sf
+
+    def update_transfer_function(self, volume: Volume,
+                                 timed_runs: int = 5) -> UpdateStats:
+        """TF-edit recompute path (src/volume_render.cpp:392-445): count
+        occupied voxels (benchmark mode), rebuild the occupancy map and the
+        distance maps of the active skipping type. Benchmark mode times
+        4 × ``timed_runs`` queued builds after one warm build, with one sync
+        at the end; interactive edits build once and stay queued."""
+        o = volume.options
+        tf = self._tf(volume)
+        stats = UpdateStats()
+        gradient = volume.gradient if o.use_precomputed_gradient else None
+        if tf.use_gradient and gradient is None:
+            raise NotImplementedError(
+                "on-the-fly gradients in the map build: ROADMAP queue A, "
+                "item 5")
+        tf_host = (o.intensity_min, o.intensity_max,
+                   o.gradient_min, o.gradient_max)
+        if self.benchmark_mode:
+            t0 = time.perf_counter()
+            n_occ = occupied_voxel_count(volume.density, gradient, tf,
+                                         tf_host)
+            stats.count_ms = (time.perf_counter() - t0) * 1e3
+            stats.occupied_voxel_percent = (
+                100.0 * n_occ / int(np.prod(volume.density.shape)))
+        thr = _tf_thresholds(tf_host)
+        if thr is None:
+            raise NotImplementedError(
+                "non-monotone TF ranges (general float occupancy path): "
+                "ROADMAP queue A, item 5")
+        ti, tg = thr
+
+        def build_maps():
+            return _build_maps_fused(
+                volume.density, gradient, ti, tg,
+                map_shape_zyx=volume.map_shape_zyx,
+                st=self.options.skipping_type, use_gradient=tf.use_gradient)
+
+        runs = timed_runs * 4 if self.benchmark_mode else 1
+        if self.benchmark_mode:
+            build_maps()
+            self._sync()
+        t0 = time.perf_counter()
+        for _ in range(runs):
+            maps = build_maps()
+        if self.benchmark_mode:
+            self._sync()
+        stats.map_update_ms = (time.perf_counter() - t0) * 1e3 / runs
+        volume.dist_maps = maps
+        volume._maps_version = getattr(volume, "_maps_version", 0) + 1
+        return stats
+
+    # ---- per-frame ------------------------------------------------------
+
+    def render(self, camera, width: int, height: int) -> RenderOutput:
+        """One frame: per volume, blended front-to-back in draw order
+        (src/volume_render_subpass.cpp:159-293)."""
+        out = None
+        for volume in self.volumes:
+            result = self.render_volume(volume, camera, width, height)
+            if out is None:
+                out = result
+            else:
+                # Blend state ONE, ONE_MINUS_SRC_ALPHA; reverse-Z depth.
+                c = result.color + (1.0 - result.color[..., 3:4]) * out.color
+                out = dataclasses.replace(
+                    result, color=c,
+                    depth=torch.maximum(result.depth, out.depth),
+                    num_volume_samples=(result.num_volume_samples
+                                        + out.num_volume_samples))
+        return out
+
+    def render_volume(self, volume: Volume, camera, width: int,
+                      height: int) -> RenderOutput:
+        out = self._render_sweep(volume, camera, width, height)
+        if out is None:
+            raise NotImplementedError(
+                "mixed principal-axis views need the per-ray marcher: "
+                "ROADMAP queue A, item 10")
+        return out
+
+    def _render_sweep(self, volume: Volume, camera, width: int,
+                      height: int) -> RenderOutput | None:
+        """The brick sweep + two-pass warp frame, or None when the view
+        needs the marcher (mixed principal-axis signs, no coverage)."""
+        if self.options.test != Test.NONE:
+            raise NotImplementedError(
+                f"{self.options.test!r} frames: ROADMAP queue A, item 11")
+        if self.options.texture_tf or self.options.depth_attachment \
+                or self.options.edge_repair:
+            raise NotImplementedError(
+                "texture TF / depth attachment / edge repair: ROADMAP "
+                "queue A, items 3, 4 and 11")
+        if height % 8 or width % 128:
+            # Render a tile-aligned padded viewport whose top-left window
+            # has pixel-identical rays, then crop.
+            from ..camera import pad_viewport
+
+            hp = -(-height // 8) * 8
+            wp = -(-width // 128) * 128
+            out = self._render_sweep(
+                volume, pad_viewport(camera, width, height, wp, hp), wp, hp)
+            if out is None:
+                return None
+            crop = lambda a: a[:height, :width]
+            return dataclasses.replace(
+                out, color=crop(out.color), depth=crop(out.depth),
+                num_volume_samples=crop(out.num_volume_samples),
+                num_distance_samples=crop(out.num_distance_samples),
+                num_empty_samples=crop(out.num_empty_samples))
+
+        cache = getattr(volume, "_sweep_cache", None)
+        if cache is None:
+            cache = volume._sweep_cache = {}
+
+        # Per-camera-pose cache: a static camera renders with no host
+        # analysis; a moving one pays the host plan only.
+        cam_key = (camera.view.tobytes(), camera.proj.tobytes(),
+                   float(self.options.clip_distance), height, width,
+                   np.asarray(volume.model_matrix).tobytes())
+        pose = cache.get(("pose", cam_key))
+        dsh = tuple(volume.density.shape)
+        if pose is None:
+            uniforms = make_uniforms(
+                camera, volume.node_transform, volume.image_transform,
+                self.options.clip_distance,
+                np.asarray(volume.effective_block_size_xyz, np.float32))
+
+            def shape_for(q):
+                return {2: dsh, 1: (dsh[1], dsh[0], dsh[2]),
+                        0: (dsh[2], dsh[0], dsh[1])}[q]
+
+            view, plan = sweep_frame.select_view_plan(uniforms, height, width,
+                                                      shape_for)
+            pose = dict(uniforms=uniforms, view=view, plan=plan)
+            keys = [k for k in cache if isinstance(k, tuple)
+                    and k[0] == "pose"]
+            if len(keys) > 64:
+                for k in keys:
+                    del cache[k]
+            cache[("pose", cam_key)] = pose
+        uniforms, view, plan = pose["uniforms"], pose["view"], pose["plan"]
+        if view is None or view["mixed"]:
+            return None
+        p = view["p_axis"]
+        if p not in cache:
+            cache[p] = transpose_for_axis(volume.density, p)
+        vol_t = cache[p]
+
+        # Skip map: 0 ⇔ occupied for every map kind; distance maps also
+        # drive the leap (dist_leap). The 8 octant maps are stitched per
+        # cell for this camera (exact per-ray selection, see
+        # _octant_composite); the stitch depends on the camera only through
+        # the map cell holding it, which keys the cache.
+        st = self.options.skipping_type
+        dist_leap = st in (SkippingType.DISTANCE,
+                           SkippingType.ANISOTROPIC_DISTANCE)
+        occ_t = None
+        if volume.dist_maps is not None and st != SkippingType.NONE:
+            maps = volume.dist_maps
+            ver = getattr(volume, "_maps_version", 0)
+            if maps.shape[0] == 8:
+                bs = np.asarray(volume.effective_block_size_xyz, np.float64)
+                cam = np.asarray(uniforms.cam_pos_tex, np.float64)
+                ks = (cam[2] * dsh[0] / bs[2], cam[1] * dsh[1] / bs[1],
+                      cam[0] * dsh[2] / bs[0])
+                sel = tuple(int(np.floor(k)) for k in ks)
+            else:
+                ks = None
+                sel = tuple(range(maps.shape[0]))
+            occ_key = ("occ", p, ver, sel)
+            occ_t = cache.get(occ_key)
+            if occ_t is None:
+                stale = [k for k in cache if isinstance(k, tuple)
+                         and k[0] == "occ" and k[2] != ver]
+                live = [k for k in cache if isinstance(k, tuple)
+                        and k[0] == "occ" and k[2] == ver]
+                for k in stale + (live if len(live) > 16 else []):
+                    del cache[k]
+                if ks is not None:
+                    src = _octant_composite(maps, *ks)
+                else:
+                    src = maps[0]
+                    for i in sel[1:]:
+                        src = torch.minimum(src, maps[i])
+                occ_t = transpose_for_axis(src, p)
+                cache[occ_key] = occ_t
+        if occ_t is None:
+            occ_t = torch.zeros((1, 1, 1), dtype=torch.uint8,
+                                device=self.device)
+            dist_leap = False
+
+        tf = self._tf(volume)
+        if tf.use_gradient:
+            raise NotImplementedError(
+                "gradient-modulated TFs in the brick sweep: ROADMAP queue A")
+        if plan is None:
+            raise NotImplementedError(
+                "view outside the w-grid plan (XLA sweep fallback): ROADMAP "
+                "queue A, item 13")
+        if plan.get("warp_xla"):
+            raise NotImplementedError(
+                "plan without a two-pass warp (gather-warp fallback): "
+                "ROADMAP queue B, item 7")
+        n_slabs = int(max(2, round(
+            vol_t.shape[0] * self._slab_oversample(volume, vol_t.shape, tf))))
+        packed = pose.get("packed")
+        if packed is None:
+            pvm = (camera.proj.astype(np.float64)
+                   @ camera.view.astype(np.float64)
+                   @ volume.model_matrix).astype(np.float32)
+            gp = (plan["wu0"], plan["dwu"], plan.get("cu", 0.0),
+                  plan["wv0"], plan["dwv"], plan.get("cv", 0.0))
+            packed = pose["packed"] = sweep_frame.pack_frame_scalars(
+                uniforms, pvm, list(gp), plan.get("hcoef"))
+        out = sweep_frame._frame_body(
+            vol_t, occ_t, tf, packed, p_axis=p, Hi=plan["Hi"], Wi=plan["Wi"],
+            ert=self.options.early_ray_termination, n_slabs=n_slabs,
+            sgn_p=plan["sgn_p"], dist_leap=dist_leap, RECT_A=plan["RECT_A"],
+            tile_h=plan.get("tile_h", 8), R_brick=plan.get("R_brick"),
+            height=height, width=width,
+            warp_variant=plan.get("warp_variant", "A"))
+        self.last_renderer = "pallas"
+        self.renderer_counts["pallas"] += 1
+        return out
+
+    def render_image(self, camera, width: int, height: int,
+                     background=(0.0, 0.0, 0.0)) -> np.ndarray:
+        """Render and composite over a background: uint8 (H, W, 3)."""
+        rgba = self.render(camera, width, height).color.cpu().numpy()
+        bg = np.asarray(background, np.float32)
+        rgb = rgba[..., :3] + (1.0 - rgba[..., 3:4]) * bg
+        return np.clip(np.round(rgb * 255.0), 0, 255).astype(np.uint8)
