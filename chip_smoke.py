@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Builds the four CUDA kernels from vkvolume_tpu_torch/csrc, loads the
+Builds the CUDA kernels from vkvolume_tpu_torch/csrc, loads the
 full-scale synthetic stag beetle (494x832x832 u8) into bench.py's engine
 (anisotropic-distance ESS, block size 4, ERT on) and:
 
@@ -17,10 +17,19 @@ full-scale synthetic stag beetle (494x832x832 u8) into bench.py's engine
      within 1e-6 of full scale) and times both;
   3. with every launch counter at 0, re-runs the TF edit and renders the
      benchmark pose at 1920x1080 (20 frames x 5 reps, CUDA events), then
-     checks that all four kernels launched, the plan took the brick sweep
-     and the two-pass warp, the frame has content, and it matches the
-     plain-PyTorch frame on the card;
-  4. prints the kernel table and, as the last line,
+     checks that K1-K4 launched, the plan took the brick sweep and the
+     two-pass warp, the frame has content, and it matches the plain-PyTorch
+     frame on the card;
+  4. with every launch counter at 0, runs the CLI's default render in this
+     process (``vkvolume_tpu_torch.cli --synth beetle --output <png>``:
+     isotropic-distance ESS, gradient TF, 1280x720, the brick sweep's
+     gradient + plane-pair-lerp variant), checks that K1, K2, the two-sided
+     K4 and K5 launched, then holds the isotropic map bit-exact to its plain
+     version, K5, the two-sided K4 and K1's variant against their plain
+     versions (timing both), the frame against the plain-PyTorch frame, the
+     plan (brick sweep, two-pass warp) and the PNG (>= 5 % covered); times
+     ms/frame and map_update_ms; runs ``--benchmark 20`` once;
+  5. prints the kernel table and, as the last line,
      {"ok": true, "device": {...}}.
 
 Any failure raises: the script exits non-zero and prints no result. It
@@ -30,13 +39,19 @@ cached in .cache/ and the kernels are built into build/.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 WIDTH, HEIGHT = 1920, 1080
+CLI_WIDTH, CLI_HEIGHT = 1280, 720      # the CLI's default frame
+CLI_BENCH_FRAMES = 20
 FRAMES, REPS = 20, 5
 MIN_COVERED = 0.05      # share of pixels with alpha > 0 the frame must show
 FRAME_TOL = 2e-3        # per-pixel colour tolerance (tests/test_torch_frame)
@@ -246,10 +261,12 @@ def read_launches():
     return {"K1": sweep_bricks.LAUNCHES["sweep_bricks"],
             "K2": warp_cuda.LAUNCHES["resample_rows"],
             "K3": distance_cuda.LAUNCHES["scan_and_relax_multi"],
-            "K4": distance_cuda.LAUNCHES["relax_z_direct_multi"]}
+            "K4": distance_cuda.LAUNCHES["relax_z_direct_multi"],
+            "K4 two-sided": distance_cuda.LAUNCHES["relax_z_direct"],
+            "K5": distance_cuda.LAUNCHES["scan_and_relax"]}
 
 
-def plain_frame(eng, cam):
+def plain_frame(eng, cam, width=WIDTH, height=HEIGHT):
     """The same frame with K1 and K2 swapped for their plain versions (the
     maps are the kernels', held bit-exact to the plain maps in phase 2)."""
     from vkvolume_tpu_torch.render import sweep_bricks, warp_cuda
@@ -258,9 +275,38 @@ def plain_frame(eng, cam):
     sweep_bricks.sweep_bricks_kernel = sweep_bricks.sweep_bricks_reference
     warp_cuda.resample_rows = warp_cuda.resample_rows_reference
     try:
-        return eng.render(cam, WIDTH, HEIGHT)
+        return eng.render(cam, width, height)
     finally:
         sweep_bricks.sweep_bricks_kernel, warp_cuda.resample_rows = saved
+
+
+def frame_reps(eng, cam, width, height):
+    """ms/frame of FRAMES queued frames, REPS times (CUDA events)."""
+    import torch
+
+    reps = []
+    for _ in range(REPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(FRAMES):
+            out = eng.render(cam, width, height)
+        end.record()
+        torch.cuda.synchronize()
+        reps.append(start.elapsed_time(end) / FRAMES)
+    return reps, out
+
+
+def check_against_plain_frame(eng, cam, color, width, height, phase):
+    """The frame within FRAME_TOL / FRAME_BAD_SHARE / FRAME_ALPHA_MEAN of
+    the plain-PyTorch frame."""
+    ref = plain_frame(eng, cam, width, height).color
+    diff = (color - ref).abs().amax(dim=-1)
+    bad = float((diff > FRAME_TOL).float().mean())
+    da = abs(float(color[..., 3].mean()) - float(ref[..., 3].mean()))
+    log(f"{phase}: frame vs plain-PyTorch frame: max {float(diff.max()):.3g}, "
+        f"share > {FRAME_TOL}: {bad:.3g}, mean alpha diff {da:.3g}")
+    assert bad <= FRAME_BAD_SHARE and da <= FRAME_ALPHA_MEAN
 
 
 def phase_frame(eng, cam):
@@ -273,16 +319,7 @@ def phase_frame(eng, cam):
     st = eng.update_transfer_function(v)
     eng.render(cam, WIDTH, HEIGHT)
     torch.cuda.synchronize()
-    reps = []
-    for _ in range(REPS):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(FRAMES):
-            out = eng.render(cam, WIDTH, HEIGHT)
-        end.record()
-        torch.cuda.synchronize()
-        reps.append(start.elapsed_time(end) / FRAMES)
+    reps, out = frame_reps(eng, cam, WIDTH, HEIGHT)
     launches = read_launches()
     frame_ms = statistics.median(reps)
     log(f"phase 3: map_update_ms={st.map_update_ms:.4f} (TF edit, 20 "
@@ -291,7 +328,8 @@ def phase_frame(eng, cam):
         f"{[round(r, 4) for r in reps]} ({FRAMES} frames x {REPS} reps, "
         f"{WIDTH}x{HEIGHT})")
     log(f"phase 3: launches {launches}")
-    assert all(n > 0 for n in launches.values()), "a kernel never ran"
+    assert all(launches[k] > 0 for k in ("K1", "K2", "K3", "K4")), \
+        "a kernel of the path never ran"
 
     pose, _, _ = frame_pose(eng, cam)
     plan = pose["plan"]
@@ -307,17 +345,152 @@ def phase_frame(eng, cam):
         f"tile_h={plan['tile_h']} warp={plan['warp_variant']} "
         f"p_axis={pose['view']['p_axis']}; covered share {covered:.4f}")
     assert covered >= MIN_COVERED, f"frame nearly empty ({covered})"
-
-    ref = plain_frame(eng, cam).color
-    diff = (color - ref).abs().amax(dim=-1)
-    bad = float((diff > FRAME_TOL).float().mean())
-    da = abs(float(color[..., 3].mean()) - float(ref[..., 3].mean()))
-    log(f"phase 3: frame vs plain-PyTorch frame: max {float(diff.max()):.3g}, "
-        f"share > {FRAME_TOL}: {bad:.3g}, mean alpha diff {da:.3g}")
-    assert bad <= FRAME_BAD_SHARE and da <= FRAME_ALPHA_MEAN
+    check_against_plain_frame(eng, cam, color, WIDTH, HEIGHT, "phase 3")
     img = np.clip(np.round(color[..., :3].cpu().numpy() * 255.0), 0, 255)
     log(f"phase 3: u8 image mean {img.mean():.3f}")
     return frame_ms, reps, launches
+
+
+def phase_cli(timer, out_dir):
+    """The CLI's default render, driven in-process on the card."""
+    import torch
+    from vkvolume_tpu_torch import cli
+    from vkvolume_tpu_torch.accel import distance, distance_cuda
+    from vkvolume_tpu_torch.accel.occupancy import (_occupancy_u8,
+                                                    _tf_thresholds)
+    from vkvolume_tpu_torch.options import SkippingType
+    from vkvolume_tpu_torch.render import sweep_bricks, sweep_frame
+    from vkvolume_tpu_torch.utils.image import read_png
+
+    png = os.path.join(out_dir, "cli_default.png")
+    reset_launches()
+    # The main path of this slice: load, gradient map, TF edit (isotropic
+    # map through K5 and the two-sided K4), one frame (K1, K2), PNG.
+    eng, _, out = cli.run(["--synth", "beetle", "--output", png])
+    torch.cuda.synchronize()
+    launches = read_launches()
+    log(f"phase 4: launches {launches}")
+    assert all(launches[k] > 0 for k in ("K1", "K2", "K4 two-sided", "K5")), \
+        "a kernel of the CLI path never ran"
+    assert launches["K3"] == 0 and launches["K4"] == 0
+
+    v = eng.volumes[0]
+    assert eng.options.skipping_type == SkippingType.DISTANCE
+    assert tuple(v.density.shape) == (494, 832, 832)
+    assert tuple(v.dist_maps.shape) == (1, 124, 208, 208)
+    cam = cli.cli_camera(CLI_WIDTH, CLI_HEIGHT)
+    pose, vol_t, occ_t = frame_pose(eng, cam)
+    plan = pose["plan"]
+    p = pose["view"]["p_axis"]
+    assert plan["R_brick"] is not None and plan["RECT_A"] is not None
+    assert not plan.get("warp_xla")
+    tf = eng._tf(v)
+    assert tf.use_gradient
+    n_slabs = int(max(2, round(vol_t.shape[0] * eng._slab_oversample(
+        v, vol_t.shape, tf))))
+    assert n_slabs != vol_t.shape[0], "expected the plane-pair lerp"
+    log(f"phase 4: plan Hi={plan['Hi']} Wi={plan['Wi']} "
+        f"tile_h={plan['tile_h']} R_brick={plan['R_brick']} "
+        f"RECT_A={plan['RECT_A']} warp={plan['warp_variant']} p_axis={p} "
+        f"vol_t={tuple(vol_t.shape)} n_slabs={n_slabs}")
+
+    # PNG and frame content.
+    color = out.color
+    assert tuple(color.shape) == (CLI_HEIGHT, CLI_WIDTH, 4)
+    assert bool(torch.isfinite(color).all())
+    img = read_png(png)
+    assert img.shape == (CLI_HEIGHT, CLI_WIDTH, 3)
+    covered = float((img.max(axis=-1) > 0).mean())
+    log(f"phase 4: PNG {img.shape} covered share {covered:.4f}, u8 mean "
+        f"{img.mean():.3f}")
+    assert covered >= MIN_COVERED, f"PNG nearly empty ({covered})"
+
+    rows = {}
+    # The isotropic map: bit-exact to the plain transform; K5 and the
+    # two-sided K4 each against their plain versions.
+    o = v.options
+    ti, tg = _tf_thresholds((o.intensity_min, o.intensity_max,
+                             o.gradient_min, o.gradient_max))
+    occ = _occupancy_u8(v.density, v.gradient, v.map_shape_zyx, ti, tg)
+    assert torch.equal(v.dist_maps[0], distance.isotropic_distance(occ)), \
+        "engine isotropic map differs from the plain transform"
+    xy_k = distance_cuda.scan_and_relax(occ)
+    assert torch.equal(xy_k, distance.scan_and_relax(occ, 0, (0,))), \
+        "K5 differs from its plain version"
+    z_k = distance_cuda.relax_z_direct(xy_k[0])
+    assert torch.equal(z_k, distance.relax_z_direct(xy_k[0], (0,))), \
+        "two-sided K4 differs from its plain version"
+    rows["K5"] = dict(max_abs_err=0.0,
+                      ms=timer(lambda: distance_cuda.scan_and_relax(occ), 20),
+                      plain_ms=timer(lambda: distance.scan_and_relax(
+                          occ, 0, (0,)), 2))
+    rows["K4 two-sided"] = dict(
+        max_abs_err=0.0,
+        ms=timer(lambda: distance_cuda.relax_z_direct(xy_k[0]), 20),
+        plain_ms=timer(lambda: distance.relax_z_direct(xy_k[0], (0,)), 2))
+    log(f"phase 4: isotropic map bit-exact {tuple(z_k.shape)}, max "
+        f"{int(z_k.max())}")
+
+    # K1's gradient + lerp variant on this frame's grid fields.
+    u, _, gp, _ = sweep_frame.unpack_frame_scalars(pose["packed"])
+    dev = vol_t.device
+    wu_g, wv_g = sweep_frame.w_grid(gp, plan["Hi"], plan["Wi"], dev)
+    sgn = 1 if plan["sgn_p"] > 0 else -1
+    s_lo, s_hi, cov, kappa = sweep_bricks.grid_fields(
+        u, wu_g, wv_g, sgn, p, max(vol_t.shape), n_slabs)
+    kw = dict(p_axis=p, ert=eng.options.early_ray_termination,
+              n_slabs=n_slabs, sgn=sgn, tile_h=plan["tile_h"], dist_leap=True,
+              grad_t=v._sweep_cache[("grad", p)])
+    grid = (wu_g, wv_g, s_lo, s_hi, kappa, cov)
+    inp = sweep_bricks.brick_inputs(vol_t, occ_t, tf, u, grid,
+                                    count_samples=True, **kw)
+    assert inp.params["use_gradient"] and not inp.params["aligned"]
+    lum_k, a_k, f_k, n_k = sweep_bricks.sweep_bricks_kernel(inp)
+    lum_p, a_p, f_p, n_p = sweep_bricks.sweep_bricks_reference(inp)
+    assert torch.equal(n_k, n_p), "K1 (gradient + lerp) sample counts differ"
+    assert torch.equal(f_k, f_p), "K1 (gradient + lerp) first hits differ"
+    err = max(float((lum_k - lum_p).abs().max()),
+              float((a_k - a_p).abs().max()))
+    assert err <= 1e-5, f"K1 (gradient + lerp) lum/alpha differ by {err}"
+    assert int(n_k.sum()) > 0 and float(a_k.max()) > 0.5
+    inp = sweep_bricks.brick_inputs(vol_t, occ_t, tf, u, grid,
+                                    count_samples=False, **kw)
+    rows["K1 gradient + lerp"] = dict(
+        max_abs_err=err,
+        ms=timer(lambda: sweep_bricks.sweep_bricks_kernel(inp), 10),
+        plain_ms=timer(lambda: sweep_bricks.sweep_bricks_reference(inp), 1))
+    log(f"phase 4: K1 gradient + lerp exact nsamp/firsts, lum/alpha err "
+        f"{err:.3g}, samples={int(n_k.sum())}")
+
+    # The frame: ms/frame, and against the plain-PyTorch frame.
+    check_against_plain_frame(eng, cam, color, CLI_WIDTH, CLI_HEIGHT,
+                              "phase 4")
+    eng.render(cam, CLI_WIDTH, CLI_HEIGHT)
+    torch.cuda.synchronize()
+    reps, _ = frame_reps(eng, cam, CLI_WIDTH, CLI_HEIGHT)
+    frame_ms = statistics.median(reps)
+    log(f"phase 4: ms/frame median={frame_ms:.4f} reps="
+        f"{[round(r, 4) for r in reps]} ({FRAMES} frames x {REPS} reps, "
+        f"{CLI_WIDTH}x{CLI_HEIGHT})")
+    # map_update_ms: one TF edit (occupancy + isotropic map), median of
+    # REPS means over 20 queued builds.
+    map_reps = [timer(lambda: eng.update_transfer_function(v), 20)
+                for _ in range(REPS)]
+    map_ms = statistics.median(map_reps)
+    log(f"phase 4: map_update_ms median={map_ms:.4f} reps="
+        f"{[round(r, 4) for r in map_reps]}")
+
+    # Benchmark mode (Test.NUM_TEXTURE_SAMPLES, ERT off) once.
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        _, _, bout = cli.run(["--synth", "beetle", "--benchmark",
+                              str(CLI_BENCH_FRAMES)])
+    for line in buf.getvalue().splitlines():
+        log(f"phase 4 --benchmark {CLI_BENCH_FRAMES}: {line}")
+    assert f"ran {CLI_BENCH_FRAMES} frames, averaged " in buf.getvalue()
+    assert bool(torch.isfinite(bout.color).all())
+    assert int(bout.num_volume_samples.max()) > 0
+    return rows, launches, frame_ms, map_ms
 
 
 def main() -> int:
@@ -346,33 +519,52 @@ def main() -> int:
     torch.cuda.synchronize()
     rows = phase_kernels(eng, cam, gpu_timer)
     frame_ms, _, launches = phase_frame(eng, cam)
+    del eng
+    with tempfile.TemporaryDirectory() as out_dir:
+        cli_rows, cli_launches, cli_ms, cli_map_ms = phase_cli(gpu_timer,
+                                                               out_dir)
+    rows.update(cli_rows)
     assert "jax" not in sys.modules
 
+    # (row, launch count of its path, source, TPU kernel body it replaces)
     where = {
-        "K1": ("sweep_bricks", "vkvolume_tpu_torch/csrc/sweep_bricks.cu",
+        "K1": ("sweep_bricks (aligned, intensity TF; bench.py frame)",
+               launches["K1"], "vkvolume_tpu_torch/csrc/sweep_bricks.cu",
                "vkvolume_tpu/render/sweep_bricks.py:56"),
+        "K1 gradient + lerp": (
+            "sweep_bricks (gradient TF, plane-pair lerp; CLI frame)",
+            cli_launches["K1"], "vkvolume_tpu_torch/csrc/sweep_bricks.cu",
+            "vkvolume_tpu/render/sweep_bricks.py:56"),
         "K2": ("resample_rows (2 launches per frame; ms per frame)",
-               "vkvolume_tpu_torch/csrc/resample_rows.cu",
+               launches["K2"], "vkvolume_tpu_torch/csrc/resample_rows.cu",
                "vkvolume_tpu/render/warp_pallas.py:227"),
-        "K3": ("scan_and_relax_multi (x-scan + y-relax)",
+        "K3": ("scan_and_relax_multi (x-scan + y-relax)", launches["K3"],
                "vkvolume_tpu_torch/csrc/distance.cu",
                "vkvolume_tpu/accel/distance_pallas.py:146"),
-        "K4": ("relax_z_direct_multi (z-relax)",
-               "vkvolume_tpu_torch/csrc/distance.cu",
+        "K4": ("relax_z_direct_multi (z-relax, one-sided x8)",
+               launches["K4"], "vkvolume_tpu_torch/csrc/distance.cu",
                "vkvolume_tpu/accel/distance_pallas.py:162"),
+        "K4 two-sided": ("relax_z_direct (z-relax, two-sided; isotropic)",
+                         cli_launches["K4 two-sided"],
+                         "vkvolume_tpu_torch/csrc/distance.cu",
+                         "vkvolume_tpu/accel/distance_pallas.py:162"),
+        "K5": ("scan_and_relax (two-sided x-scan + y-relax; isotropic)",
+               cli_launches["K5"], "vkvolume_tpu_torch/csrc/distance.cu",
+               "vkvolume_tpu/accel/distance_pallas.py:136"),
     }
     kernels = []
-    for k in ("K1", "K2", "K3", "K4"):
-        name, source, replaces = where[k]
+    for k, (name, n, source, replaces) in where.items():
         r = rows[k]
         log(f"{k} {name}: {r['ms']:.4f} ms vs plain {r['plain_ms']:.4f} ms "
-            f"(max abs err {r['max_abs_err']:.3g}, launches {launches[k]})")
-        kernels.append({"name": f"{k} {name}", "route": "cuda",
+            f"(max abs err {r['max_abs_err']:.3g}, launches {n})")
+        kernels.append({"name": f"{k.split()[0]} {name}", "route": "cuda",
                         "source": source, "replaces": replaces,
-                        "launches": launches[k],
-                        "max_abs_err": r["max_abs_err"],
+                        "launches": n, "max_abs_err": r["max_abs_err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"]})
-    log(f"frame_ms_median {frame_ms:.4f}")
+    log(f"frame_ms_median {frame_ms:.4f} ({WIDTH}x{HEIGHT}, skipmode 3)")
+    log(f"cli_frame_ms_median {cli_ms:.4f} cli_map_update_ms {cli_map_ms:.4f} "
+        f"({CLI_WIDTH}x{CLI_HEIGHT}, skipmode 2, gradient TF)")
+    log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,6 +15,7 @@ from vkvolume_tpu.options import Test as JTest
 from vkvolume_tpu.render import sweep_pallas
 from vkvolume_tpu_torch.bench import harness as th
 from vkvolume_tpu_torch.options import Test as TTest
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")
@@ -106,7 +107,9 @@ def test_unported_paths_raise(engines):
 def test_port_never_imports_jax():
     code = ("import sys, vkvolume_tpu_torch, vkvolume_tpu_torch.engine, "
             "vkvolume_tpu_torch.bench, vkvolume_tpu_torch.render.sweep_frame, "
-            "vkvolume_tpu_torch.interop; "
+            "vkvolume_tpu_torch.interop, vkvolume_tpu_torch.cli, "
+            "vkvolume_tpu_torch.io, vkvolume_tpu_torch.io.native, "
+            "vkvolume_tpu_torch.utils.image; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert not any(m.startswith('vkvolume_tpu.') or m == "
             "'vkvolume_tpu' for m in sys.modules)")

@@ -3,9 +3,10 @@ from .distance import (
     anisotropic_distance,
     axis_scan,
     brute_force_chebyshev,
+    isotropic_distance,
     relax,
 )
-from .distance_cuda import anisotropic_distance_cuda
+from .distance_cuda import anisotropic_distance_cuda, isotropic_distance_cuda
 from .gradient import gradient_map
 from .occupancy import (
     EMPTY,
@@ -21,6 +22,8 @@ __all__ = [
     "anisotropic_distance_cuda",
     "axis_scan",
     "brute_force_chebyshev",
+    "isotropic_distance",
+    "isotropic_distance_cuda",
     "relax",
     "gradient_map",
     "EMPTY",

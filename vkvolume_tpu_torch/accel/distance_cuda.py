@@ -1,6 +1,8 @@
-"""Anisotropic Chebyshev distance maps on the card — K3 and K4
-(csrc/distance.cu), the counterparts of ``vkvolume_tpu/accel/
-distance_pallas.py``'s ``scan_and_relax_multi`` and ``relax_z_direct_multi``.
+"""Chebyshev distance maps on the card — K3, K4 and K5 (csrc/distance.cu),
+the counterparts of ``vkvolume_tpu/accel/distance_pallas.py``'s
+``scan_and_relax_multi`` and ``relax_z_direct_multi`` (the octant maps),
+and ``scan_and_relax`` and ``relax_z_direct`` with ``relax_dirs=(0,)``
+(the isotropic map).
 
 A CPU tensor runs the plain versions in ``distance.py``; a CUDA tensor
 launches the kernels (or raises). ``LAUNCHES`` counts kernel launches per
@@ -14,7 +16,55 @@ import torch
 from ..utils import cuda_build
 from . import distance
 
-LAUNCHES = {"scan_and_relax_multi": 0, "relax_z_direct_multi": 0}
+LAUNCHES = {"scan_and_relax_multi": 0, "relax_z_direct_multi": 0,
+            "scan_and_relax": 0, "relax_z_direct": 0}
+
+
+def _require_zyx(name: str, t: torch.Tensor) -> None:
+    cuda_build.require_cuda(name, t, torch.uint8)
+    if t.ndim != 3:
+        raise ValueError(f"{name}: expected (Z, Y, X), got {tuple(t.shape)}")
+
+
+def scan_and_relax(occ_u8: torch.Tensor) -> torch.Tensor:
+    """K5: the two-sided x-scan and two-sided y-relaxation of a (Z, Y, X)
+    u8 occupancy map, as (1, Z, Y, X) u8 (``relax_dirs=(0,)``)."""
+    if occ_u8.device.type == "cpu":
+        return distance.scan_and_relax(occ_u8, 0, (0,))
+    _require_zyx("occ_u8", occ_u8)
+    lib = cuda_build.load_kernels()
+    Z, Y, X = occ_u8.shape
+    xs = torch.empty((Z, Y, X), dtype=torch.uint8, device=occ_u8.device)
+    out = torch.empty((1, Z, Y, X), dtype=torch.uint8, device=occ_u8.device)
+    s = cuda_build.stream()
+    cuda_build.check(lib.vkv_x_scan2(occ_u8.data_ptr(), xs.data_ptr(),
+                                     Z, Y, X, s), "x_scan2")
+    cuda_build.check(lib.vkv_y_relax2(xs.data_ptr(), out.data_ptr(),
+                                      Z, Y, X, s), "y_relax2")
+    LAUNCHES["scan_and_relax"] += 1
+    return out
+
+
+def relax_z_direct(d_u8: torch.Tensor) -> torch.Tensor:
+    """K4, two-sided: the z-relaxation of one (Z, Y, X) u8 map in both
+    senses at once, as (1, Z, Y, X) u8 (``relax_dirs=(0,)``)."""
+    if d_u8.device.type == "cpu":
+        return distance.relax_z_direct(d_u8, (0,))
+    _require_zyx("d_u8", d_u8)
+    lib = cuda_build.load_kernels()
+    Z, Y, X = d_u8.shape
+    out = torch.empty((1, Z, Y, X), dtype=torch.uint8, device=d_u8.device)
+    cuda_build.check(lib.vkv_z_relax2(d_u8.data_ptr(), out.data_ptr(),
+                                      Z, Y, X, cuda_build.stream()),
+                     "z_relax2")
+    LAUNCHES["relax_z_direct"] += 1
+    return out
+
+
+def isotropic_distance_cuda(occ_u8: torch.Tensor) -> torch.Tensor:
+    """The isotropic map as (1, Z, Y, X) u8 — counterpart of
+    ``isotropic_distance_pallas``: K5, then the two-sided K4."""
+    return relax_z_direct(scan_and_relax(occ_u8)[0])
 
 
 def scan_and_relax_multi(occ_u8: torch.Tensor,
@@ -23,9 +73,7 @@ def scan_and_relax_multi(occ_u8: torch.Tensor,
     (Z, Y, X) u8 occupancy map, scan-major, as (4, Z, Y, X) u8."""
     if occ_u8.device.type == "cpu":
         return distance.scan_and_relax_multi(occ_u8, cap)
-    cuda_build.require_cuda("occ_u8", occ_u8, torch.uint8)
-    if occ_u8.ndim != 3:
-        raise ValueError(f"occ_u8: expected (Z, Y, X), got {occ_u8.shape}")
+    _require_zyx("occ_u8", occ_u8)
     lib = cuda_build.load_kernels()
     Z, Y, X = occ_u8.shape
     xs = torch.empty((2, Z, Y, X), dtype=torch.uint8, device=occ_u8.device)

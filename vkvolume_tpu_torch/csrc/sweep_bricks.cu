@@ -34,9 +34,17 @@
 //   clamped to [0, Sv-1]. Not clamp-to-edge bilinear semantics.
 // * Built without fast math and with -fmad=false: every multiply and add is
 //   rounded as in the plain PyTorch version (sweep_bricks_reference), so
-//   the two agree bit for bit, and powf stays exact.
-// Only the main path's variant: one slab per voxel plane (n_slabs == Np),
-// intensity-only closed-form TF; the wrapper refuses the other statics.
+//   the two agree bit for bit, and powf stays exact. This matters most in
+//   the plane-pair lerp: zp = s*Np - 0.5 picks the plane pair and
+//   (a*(1-fp) + b*fp)*256 is rounded to u8.8 fixed point (rintf, half to
+//   even, as jnp.round); a contracted FMA there moves a texel or an LSB.
+// * Variants are template parameters of the one kernel: ALIGNED (one slab
+//   per voxel plane, n_slabs == Np, no plane lerp) or the plane-pair lerp
+//   (sweep_bricks.py:380-387, :443-447), and GRAD, the gradient-modulated
+//   TF (:469-480): the gradient map sampled by the same taps, a_tf scaled
+//   by clip((g - gmin)*ginv, 0, 1). A sample whose intensity alpha is 0
+//   skips the gradient taps (its product is 0 either way).
+// Not ported: the texture-TF variant.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -47,8 +55,10 @@ struct BrickParams {
   int H, W, tile_h;        // w-grid image and tile height
   int bp_p, CV, CU, CVp, mp;   // coarse maps (mp, CVp, 128) u8
   int n_slabs, sgn, ert, count_samples;
+  int aligned, use_gradient;   // the template variant the wrapper picked
   float o_u, o_v, o_p, ds, imin, iinv, vaf;
   float inv_cvox_v, inv_cvox_u, drift_u, drift_v;
+  float gmin, ginv;            // gradient TF (use_gradient)
 };
 
 namespace {
@@ -122,7 +132,11 @@ struct Walk {
   int d_pair, kb_end;
 
   __device__ float slab_s(int k) const { return ((float)k + 0.5f) * p.ds; }
-  __device__ int k0_of(int k) const { return clampi(k, 0, p.Np - 2); }
+  // First voxel plane of slab k's plane pair.
+  __device__ int k0_of(int k) const {
+    if (p.aligned) return clampi(k, 0, p.Np - 2);
+    return clampi(f2i(floorf(slab_s(k) * (float)p.Np - 0.5f)), 0, p.Np - 2);
+  }
   __device__ bool in_range(int kb) const {
     return p.sgn > 0 ? kb < kb_end : kb > kb_end;
   }
@@ -218,7 +232,34 @@ struct Walk {
   }
 };
 
-template <int PPT>
+// Bilinear sample (intensity or gradient, in [0, 1]) of the plane pair at
+// plane0 (plane1 = the next plane, read only when !ALIGNED, lerped with
+// weight fp and quantised to u8.8): texel rows o0 and o1, columns iu0 and
+// iu1, in-plane weights fu (u) and w0, w1 (v).
+template <bool ALIGNED>
+__device__ __forceinline__ float bilinear(const uint8_t* __restrict__ plane0,
+                                          size_t plane_sz, float fp,
+                                          size_t o0, size_t o1, int iu0,
+                                          int iu1, float fu, float w0,
+                                          float w1) {
+  float v[4];
+  const size_t off[4] = {o0 + iu0, o0 + iu1, o1 + iu0, o1 + iu1};
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    const float a = (float)__ldg(plane0 + off[t]);
+    if (ALIGNED) {
+      v[t] = a;
+    } else {
+      const float b = (float)__ldg(plane0 + plane_sz + off[t]);
+      v[t] = rintf((a * (1.0f - fp) + b * fp) * 256.0f) * (1.0f / 256.0f);
+    }
+  }
+  const float c0 = v[0] + (v[1] - v[0]) * fu;
+  const float c1 = v[2] + (v[3] - v[2]) * fu;
+  return (w0 * c0 + w1 * c1) * kInv255;
+}
+
+template <int PPT, bool GRAD, bool ALIGNED>
 __global__ void __launch_bounds__(kThreads)
 sweep_bricks_kernel(const float* __restrict__ wu, const float* __restrict__ wv,
                     const float* __restrict__ s_lo_g,
@@ -228,6 +269,7 @@ sweep_bricks_kernel(const float* __restrict__ wu, const float* __restrict__ wv,
                     const uint8_t* __restrict__ coarse,
                     const uint8_t* __restrict__ cskip,
                     const uint8_t* __restrict__ vol,
+                    const uint8_t* __restrict__ grad,
                     const int* __restrict__ kb_occ,
                     float* __restrict__ lum_o, float* __restrict__ alpha_o,
                     float* __restrict__ firsts_o, int* __restrict__ nsamp_o,
@@ -336,8 +378,18 @@ sweep_bricks_kernel(const float* __restrict__ wu, const float* __restrict__ wv,
           const int iu1 = min(iu0 + 1, p.Su - 1);
           float fu = clampf(qu - flu, 0.0f, 1.0f);
           if (iu1 <= iu0) fu = 0.0f;   // right edge: second tap = first
-          const uint8_t* plane =
-              vol + (size_t)T.k0_of(k) * p.Sv * p.Su;
+          // Plane pair (kk0, kk0 + 1) and its lerp weight.
+          int kk0;
+          float fp = 0.0f;
+          if (ALIGNED) {
+            kk0 = clampi(k, 0, p.Np - 2);
+          } else {
+            const float zp = s * (float)p.Np - 0.5f;
+            kk0 = clampi(f2i(floorf(zp)), 0, p.Np - 2);
+            fp = clampf(zp - (float)kk0, 0.0f, 1.0f);
+          }
+          const size_t plane_sz = (size_t)p.Sv * p.Su;
+          const size_t plane_off = (size_t)kk0 * plane_sz;
 #pragma unroll
           for (int i = 0; i < PPT; ++i) {
             bool in_rng = cv[i] && s >= slo[i] && s <= shi[i]
@@ -351,16 +403,18 @@ sweep_bricks_kernel(const float* __restrict__ wu, const float* __restrict__ wv,
             const int r1 = min(r0 + 1, p.Sv - 1);
             const float w0 = fmaxf(0.0f, 1.0f - fabsf(qv - (float)r0));
             const float w1 = fmaxf(0.0f, 1.0f - fabsf(qv - (float)(r0 + 1)));
-            const uint8_t* row0 = plane + (size_t)r0 * p.Su;
-            const uint8_t* row1 = plane + (size_t)r1 * p.Su;
-            const float v00 = __ldg(row0 + iu0), v01 = __ldg(row0 + iu1);
-            const float v10 = __ldg(row1 + iu0), v11 = __ldg(row1 + iu1);
-            const float c0 = v00 + (v01 - v00) * fu;
-            const float c1 = v10 + (v11 - v10) * fu;
-            const float intensity = (w0 * c0 + w1 * c1) * kInv255;
-            const float a_tf = clampf((intensity - p.imin) * p.iinv, 0.0f,
-                                      1.0f);
+            const size_t o0 = (size_t)r0 * p.Su, o1 = (size_t)r1 * p.Su;
+            const float intensity = bilinear<ALIGNED>(
+                vol + plane_off, plane_sz, fp, o0, o1, iu0, iu1, fu, w0, w1);
+            float a_tf = clampf((intensity - p.imin) * p.iinv, 0.0f, 1.0f);
             if (!(a_tf > 0.0f)) continue;
+            if (GRAD) {
+              const float gradient = bilinear<ALIGNED>(
+                  grad + plane_off, plane_sz, fp, o0, o1, iu0, iu1, fu, w0,
+                  w1);
+              a_tf = a_tf * clampf((gradient - p.gmin) * p.ginv, 0.0f, 1.0f);
+              if (!(a_tf > 0.0f)) continue;
+            }
             const float a_corr = clampf(
                 p.vaf * (1.0f - powf(1.0f - a_tf, kap[i])), 0.0f, 1.0f);
             const float one_m = 1.0f - alp[i];
@@ -388,30 +442,57 @@ sweep_bricks_kernel(const float* __restrict__ wu, const float* __restrict__ wv,
 
 }  // namespace
 
+namespace {
+
+template <int PPT>
+void launch(const dim3& grid, const dim3& block, cudaStream_t s,
+            const void* wu, const void* wv, const void* s_lo,
+            const void* s_hi, const void* kappa, const void* cov,
+            const void* coarse, const void* cskip, const void* vol,
+            const void* grad, const void* kb_occ, void* lum, void* alpha,
+            void* firsts, void* nsamp, const BrickParams& p) {
+#define VKV_LAUNCH(GRAD, ALIGNED)                                           \
+  sweep_bricks_kernel<PPT, GRAD, ALIGNED><<<grid, block, 0, s>>>(          \
+      (const float*)wu, (const float*)wv, (const float*)s_lo,              \
+      (const float*)s_hi, (const float*)kappa, (const uint8_t*)cov,        \
+      (const uint8_t*)coarse, (const uint8_t*)cskip, (const uint8_t*)vol,  \
+      (const uint8_t*)grad, (const int*)kb_occ, (float*)lum,               \
+      (float*)alpha, (float*)firsts, (int*)nsamp, p)
+  if (p.use_gradient) {
+    if (p.aligned) VKV_LAUNCH(true, true); else VKV_LAUNCH(true, false);
+  } else {
+    if (p.aligned) VKV_LAUNCH(false, true); else VKV_LAUNCH(false, false);
+  }
+#undef VKV_LAUNCH
+}
+
+}  // namespace
+
 extern "C" int vkv_sweep_bricks(const void* wu, const void* wv,
                                 const void* s_lo, const void* s_hi,
                                 const void* kappa, const void* cov,
                                 const void* coarse, const void* cskip,
-                                const void* vol, const void* kb_occ,
-                                void* lum, void* alpha, void* firsts,
-                                void* nsamp, BrickParams p, void* stream) {
+                                const void* vol, const void* grad,
+                                const void* kb_occ, void* lum, void* alpha,
+                                void* firsts, void* nsamp, BrickParams p,
+                                void* stream) {
   if (p.H <= 0 || p.W <= 0) return 0;
   const dim3 block(kTileW, kRows);
   const dim3 grid(p.W / kTileW, p.H / p.tile_h);
   const cudaStream_t s = (cudaStream_t)stream;
-#define VKV_LAUNCH(PPT)                                                     \
-  sweep_bricks_kernel<PPT><<<grid, block, 0, s>>>(                         \
-      (const float*)wu, (const float*)wv, (const float*)s_lo,              \
-      (const float*)s_hi, (const float*)kappa, (const uint8_t*)cov,        \
-      (const uint8_t*)coarse, (const uint8_t*)cskip, (const uint8_t*)vol,  \
-      (const int*)kb_occ, (float*)lum, (float*)alpha, (float*)firsts,      \
-      (int*)nsamp, p)
   switch (p.tile_h) {
-    case 8: VKV_LAUNCH(2); break;
-    case 16: VKV_LAUNCH(4); break;
-    case 32: VKV_LAUNCH(8); break;
+    case 8: launch<2>(grid, block, s, wu, wv, s_lo, s_hi, kappa, cov, coarse,
+                      cskip, vol, grad, kb_occ, lum, alpha, firsts, nsamp, p);
+      break;
+    case 16: launch<4>(grid, block, s, wu, wv, s_lo, s_hi, kappa, cov, coarse,
+                       cskip, vol, grad, kb_occ, lum, alpha, firsts, nsamp,
+                       p);
+      break;
+    case 32: launch<8>(grid, block, s, wu, wv, s_lo, s_hi, kappa, cov, coarse,
+                       cskip, vol, grad, kb_occ, lum, alpha, firsts, nsamp,
+                       p);
+      break;
     default: return (int)cudaErrorInvalidValue;
   }
-#undef VKV_LAUNCH
   return (int)cudaGetLastError();
 }

@@ -1,6 +1,6 @@
 from .engine import Engine, UpdateStats
 from ..options import RenderOptions, SkippingType, Test, VolumeOptions
-from .volume import Volume, from_array
+from .volume import Volume, from_array, from_file
 
 __all__ = [
     "Engine",
@@ -11,4 +11,5 @@ __all__ = [
     "VolumeOptions",
     "Volume",
     "from_array",
+    "from_file",
 ]

@@ -9,11 +9,11 @@ PyTorch versions on "cpu".
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP item):
 the per-ray marcher and the XLA-sweep fallbacks (mixed-sign views, plans
-without a brick sweep or a two-pass warp), the isotropic distance map
-(skipmode 2), the Test diagnostics, texture TFs, depth attachments, edge
-repair, the scene pass and the accel cache. The TPU workarounds (compile
-retries, watchdog banding, prewarm, frozen plan tiers, A/B environment
-knobs) are left out by design.
+without a brick sweep or a two-pass warp), the ray entry / exit Test
+diagnostics, texture TFs, depth attachments, edge repair, the scene pass
+and the accel cache. The TPU workarounds (compile retries, watchdog
+banding, prewarm, frozen plan tiers, A/B environment knobs) are left out
+by design.
 """
 
 from __future__ import annotations
@@ -24,7 +24,8 @@ import time
 import numpy as np
 import torch
 
-from ..accel.distance_cuda import anisotropic_distance_cuda
+from ..accel.distance_cuda import (anisotropic_distance_cuda,
+                                   isotropic_distance_cuda)
 from ..accel.gradient import gradient_map
 from ..accel.occupancy import (_occupancy_u8, _tf_thresholds,
                                occupied_voxel_count)
@@ -65,15 +66,14 @@ def _octant_composite(maps: torch.Tensor, kz: float, ky: float,
 def _build_maps_fused(density, gradient, ti: int, tg: int, *, map_shape_zyx,
                       st: SkippingType, use_gradient: bool) -> torch.Tensor:
     """Occupancy + distance transform of one TF edit: (N, mz, my, mx) u8,
-    N = 8 for the anisotropic maps, 1 (the occupancy map) for BLOCK/NONE."""
+    N = 8 for the anisotropic maps, 1 for the isotropic map (DISTANCE) and
+    the occupancy map (BLOCK/NONE)."""
     occ = _occupancy_u8(density, gradient if use_gradient else None,
                         map_shape_zyx, ti, tg)
     if st == SkippingType.ANISOTROPIC_DISTANCE:
         return anisotropic_distance_cuda(occ)
     if st == SkippingType.DISTANCE:
-        raise NotImplementedError(
-            "isotropic distance map (skipmode 2, distance_pallas."
-            "_scan_relax_kernel, K5): ROADMAP queue B, item 5")
+        return isotropic_distance_cuda(occ)
     return occ[None]
 
 
@@ -248,9 +248,9 @@ class Engine:
                       height: int) -> RenderOutput | None:
         """The brick sweep + two-pass warp frame, or None when the view
         needs the marcher (mixed principal-axis signs, no coverage)."""
-        if self.options.test != Test.NONE:
+        if self.options.test not in (Test.NONE, Test.NUM_TEXTURE_SAMPLES):
             raise NotImplementedError(
-                f"{self.options.test!r} frames: ROADMAP queue A, item 11")
+                f"{self.options.test!r} frames: ROADMAP queue A, item 4")
         if self.options.texture_tf or self.options.depth_attachment \
                 or self.options.edge_repair:
             raise NotImplementedError(
@@ -311,6 +311,14 @@ class Engine:
         if p not in cache:
             cache[p] = transpose_for_axis(volume.density, p)
         vol_t = cache[p]
+        tf = self._tf(volume)
+        grad_t = None
+        if tf.use_gradient:
+            # The gradient map (update_transfer_function refused the TF
+            # without one), transposed and cached beside vol_t.
+            if ("grad", p) not in cache:
+                cache[("grad", p)] = transpose_for_axis(volume.gradient, p)
+            grad_t = cache[("grad", p)]
 
         # Skip map: 0 ⇔ occupied for every map kind; distance maps also
         # drive the leap (dist_leap). The 8 octant maps are stitched per
@@ -355,10 +363,6 @@ class Engine:
                                 device=self.device)
             dist_leap = False
 
-        tf = self._tf(volume)
-        if tf.use_gradient:
-            raise NotImplementedError(
-                "gradient-modulated TFs in the brick sweep: ROADMAP queue A")
         if plan is None:
             raise NotImplementedError(
                 "view outside the w-grid plan (XLA sweep fallback): ROADMAP "
@@ -384,7 +388,8 @@ class Engine:
             sgn_p=plan["sgn_p"], dist_leap=dist_leap, RECT_A=plan["RECT_A"],
             tile_h=plan.get("tile_h", 8), R_brick=plan.get("R_brick"),
             height=height, width=width,
-            warp_variant=plan.get("warp_variant", "A"))
+            warp_variant=plan.get("warp_variant", "A"), grad_t=grad_t,
+            test=self.options.test)
         self.last_renderer = "pallas"
         self.renderer_counts["pallas"] += 1
         return out

@@ -1,8 +1,8 @@
 """Volume state — port of ``vkvolume_tpu/engine/volume.py`` (the reference's
 ``Volume`` scene component, src/volume_component.h:31-93): the density and
 its acceleration maps are tensors on the volume's device, the transforms
-are host numpy. Loading from files (``from_file``, ``io/``) is not ported
-yet.
+are host numpy. ``from_file`` loads a raw volume with its ``.header``
+sidecar (``io/``); ``set_spin`` is the reference's spin animation.
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from ..accel import occupancy as occ_mod
+from ..io.header import Header
 from ..options import VolumeOptions
 from ..utils import math3d
 
@@ -29,6 +30,7 @@ class Volume:
     block_size: int = 4                # nominal distance-map block size
     gradient: torch.Tensor | None = None    # (D, H, W) uint8
     dist_maps: torch.Tensor | None = None   # (N, mz, my, mx) uint8; N=1 or 8
+    header: Header | None = None
 
     @property
     def device(self) -> torch.device:
@@ -62,6 +64,42 @@ class Volume:
     def set_scale(self, scale_xyz) -> None:
         """Node scale (src/volume_render.cpp:233-237)."""
         self.node_transform = math3d.scale(scale_xyz)
+        self._spin_base = None
+
+    def set_spin(self, angle_rad: float, axis=(0.0, 1.0, 0.0)) -> None:
+        """Node rotation by an absolute angle over the node's spin-free
+        transform, captured on first use — the reference's ``spin_volumes``
+        animation (src/volume_render.cpp:89, :256-271). The rotation is
+        about the node's own position: T · R · linear(base)."""
+        base = getattr(self, "_spin_base", None)
+        if base is None:
+            base = self._spin_base = np.asarray(self.node_transform,
+                                                np.float64)
+        lin = np.asarray(base, np.float64).copy()
+        t = lin[:3, 3].copy()
+        lin[:3, 3] = 0.0
+        m = math3d.rotate(angle_rad, axis).astype(np.float64) @ lin
+        m[:3, 3] = t
+        self.node_transform = m.astype(np.float32)
+
+
+def from_file(path: str, options: VolumeOptions | None = None,
+              block_size: int = 4, name: str | None = None,
+              device: str | torch.device = "cpu") -> Volume:
+    """Load and normalise a volume from ``<path>`` / ``<path>.header``
+    onto ``device`` (``Volume::load_from_file``,
+    src/volume_component.cpp:55-153)."""
+    from ..io.loader import load_volume
+
+    data, header = load_volume(path)
+    return Volume(
+        name=name or str(path),
+        density=torch.from_numpy(np.ascontiguousarray(data)).to(device),
+        options=options or VolumeOptions(),
+        image_transform=header.image_transform,
+        block_size=block_size,
+        header=header,
+    )
 
 
 def from_array(

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from .engine.volume import Volume, from_array
+from .io.header import Header
 from .options import VolumeOptions
 from .render.ray_setup import FrameUniforms
 from .tf.transfer_function import TFParams
@@ -23,12 +24,19 @@ from .tf.transfer_function import TFParams
 def volume_from_numpy(density: np.ndarray, image_transform: np.ndarray,
                       node_transform: np.ndarray, block_size: int,
                       options: VolumeOptions | None = None,
-                      device: str | torch.device = "cpu") -> Volume:
-    """A port Volume with the given (D, H, W) u8 density and transforms."""
+                      device: str | torch.device = "cpu",
+                      gradient: np.ndarray | None = None,
+                      header: Header | None = None) -> Volume:
+    """A port Volume with the given (D, H, W) u8 density and transforms,
+    and optionally its (D, H, W) u8 gradient map and file header."""
     vol = from_array(np.asarray(density, np.uint8), options,
                      block_size=block_size, device=device)
     vol.image_transform = np.asarray(image_transform, np.float32)
     vol.node_transform = np.asarray(node_transform, np.float32)
+    if gradient is not None:
+        vol.gradient = torch.tensor(np.asarray(gradient, np.uint8),
+                                    device=device)
+    vol.header = header
     return vol
 
 

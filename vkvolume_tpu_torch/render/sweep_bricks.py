@@ -26,8 +26,17 @@ at most two rows), so the rect geometry statics (R, span_blks, rect_w) have
 no counterpart here. The plan sizes them so that every covered sample
 lies inside the rect, which makes the two identical.
 
-Only the slice of the main path is ported: one slab per voxel plane
-(``n_slabs == Np``), intensity-only closed-form TF. Other statics raise.
+Two variants of the kernel, as in the JAX package:
+
+* aligned (``n_slabs == Np``): slab k samples voxel plane k;
+* plane-pair lerp (``n_slabs != Np``): slab k lies between planes kk0 and
+  kk0 + 1; the two planes' rows are lerped and quantised to u8.8 fixed
+  point (round half to even) before the in-plane lerp, exactly as the TPU
+  kernel packs its lerped rows.
+
+Either runs with the closed-form intensity TF or the gradient-modulated
+one (``a_tf *= clip((gradient - gmin)·ginv, 0, 1)``, the gradient map
+sampled by the same taps). The texture-TF variant is not ported.
 """
 
 from __future__ import annotations
@@ -43,10 +52,10 @@ from .ray_setup import _SLICE_AXES, FrameUniforms, RenderOutput
 
 TILE_W = 128
 BRICK = 8          # slabs per brick
-PLANES = BRICK + 1
 TILE_HS = (8, 16, 32)
 _BIG = 1e30
 _INV255 = float(np.float32(1.0 / 255.0))
+_INV256 = 1.0 / 256.0
 
 LAUNCHES = {"sweep_bricks": 0}
 
@@ -104,7 +113,8 @@ def grid_fields(u: FrameUniforms, wu_g: torch.Tensor, wv_g: torch.Tensor,
 @dataclasses.dataclass(frozen=True)
 class BrickInputs:
     """Everything K1 reads: per-pixel w-grid fields (H, W), the two coarse
-    maps (mp, CVp, 128) u8, the transposed volume (Np, Sv, Su) u8, the
+    maps (mp, CVp, 128) u8, the transposed volume (Np, Sv, Su) u8 and, for
+    a gradient TF, the gradient map transposed alike (else None), the
     occupied brick range (2,) int32 and the launch scalars (the fields of
     ``BrickParams`` in csrc/sweep_bricks.cu)."""
     wu: torch.Tensor
@@ -116,26 +126,37 @@ class BrickInputs:
     coarse: torch.Tensor
     cskip: torch.Tensor
     vol: torch.Tensor
+    grad: torch.Tensor | None
     kb_occ: torch.Tensor
     params: dict
+
+
+def planes_per_brick(Np: int, n_slabs: int) -> int:
+    """Voxel planes one brick's slabs touch (the TPU kernel's rect depth):
+    BRICK + 1 when aligned, else ceil((BRICK-1)·Np/n_slabs) + 2."""
+    if n_slabs == Np:
+        return BRICK + 1
+    return int(np.ceil((BRICK - 1) * (Np / n_slabs))) + 2
 
 
 def brick_inputs(vol_t: torch.Tensor, occupancy_t: torch.Tensor,
                  tf: TFParams, uniforms: FrameUniforms, grid, *, p_axis: int,
                  ert: bool, count_samples: bool, n_slabs: int, sgn: int,
-                 tile_h: int, dist_leap: bool) -> BrickInputs:
+                 tile_h: int, dist_leap: bool,
+                 grad_t: torch.Tensor | None = None) -> BrickInputs:
     """K1's inputs: the prologue of ``_sweep_bricks_jit`` (coarse leap map,
-    tight skip map, occupied brick range, launch scalars)."""
+    tight skip map, occupied brick range, launch scalars). ``grad_t``: the
+    gradient map transposed like ``vol_t``, required by a gradient TF."""
     wu, wv, s_lo, s_hi, kappa, covered = grid
     H, W = wu.shape
     Np, Sv, Su = vol_t.shape
-    if tf.use_gradient:
-        raise NotImplementedError(
-            "gradient-modulated TFs in the brick sweep: ROADMAP queue A")
-    if n_slabs != Np:
-        raise NotImplementedError(
-            "brick sweep with n_slabs != Np (plane-pair lerp): ROADMAP "
-            "queue A")
+    if tf.use_gradient and grad_t is None:
+        raise ValueError("a gradient TF needs the transposed gradient map")
+    use_gradient = bool(tf.use_gradient)
+    if use_gradient and tuple(grad_t.shape) != (Np, Sv, Su):
+        raise ValueError(f"grad_t {tuple(grad_t.shape)} != vol_t "
+                         f"{(Np, Sv, Su)}")
+    PLANES = planes_per_brick(Np, n_slabs)
     if Np < PLANES:
         raise ValueError(f"volume too shallow for the brick sweep: {Np}")
     if tile_h not in TILE_HS or H % tile_h or W % TILE_W:
@@ -194,20 +215,24 @@ def brick_inputs(vol_t: torch.Tensor, occupancy_t: torch.Tensor,
         Np=Np, Sv=Sv, Su=Su, H=H, W=W, tile_h=tile_h, bp_p=bp_p, CV=CV,
         CU=CU, CVp=CVp, mp=mp, n_slabs=n_slabs, sgn=1 if sgn > 0 else -1,
         ert=int(bool(ert)), count_samples=int(bool(count_samples)),
+        aligned=int(n_slabs == Np), use_gradient=int(use_gradient),
         o_u=float(o[u_ax]), o_v=float(o[v_ax]), o_p=float(o[p_axis]), ds=ds,
         imin=tf.intensity_min, iinv=tf.intensity_range_inv,
         vaf=tf.voxel_alpha_factor,
         inv_cvox_v=_f32(1.0 / (factor_v * bp_v)),
         inv_cvox_u=_f32(1.0 / (factor_u * bp_u)),
         drift_u=_f32(Su * bp_p / (Np * bp_u)),   # map cells per map plane
-        drift_v=_f32(Sv * bp_p / (Np * bp_v)))
+        drift_v=_f32(Sv * bp_p / (Np * bp_v)),
+        gmin=tf.gradient_min, ginv=tf.gradient_range_inv)
     f = torch.float32
     return BrickInputs(
         wu=wu.to(f).contiguous(), wv=wv.to(f).contiguous(),
         s_lo=s_lo.to(f).contiguous(), s_hi=s_hi.to(f).contiguous(),
         kappa=kappa.to(f).contiguous(), cov=covered.contiguous(),
         coarse=pad_map(coarse_pair), cskip=pad_map(cskip),
-        vol=vol_t.contiguous(), kb_occ=kb_occ, params=params)
+        vol=vol_t.contiguous(),
+        grad=grad_t.contiguous() if use_gradient else None, kb_occ=kb_occ,
+        params=params)
 
 
 def _f2i(x: torch.Tensor) -> torch.Tensor:
@@ -266,7 +291,12 @@ def sweep_bricks_reference(inp: BrickInputs):
         in_range = lambda kb: kb > kb_end
 
     slab_s = lambda k: (k.to(torch.float32) + 0.5) * ds
-    k0_of = lambda k: k.clamp(0, Np - 2)
+    aligned, use_gradient = bool(p["aligned"]), bool(p["use_gradient"])
+
+    def k0_of(k):
+        if aligned:
+            return k.clamp(0, Np - 2)
+        return _f2i(torch.floor(slab_s(k) * float(Np) - 0.5)).clamp(0, Np - 2)
     rate = torch.clamp(torch.maximum(
         torch.maximum(wu_min.abs(), wu_max.abs()) * p["drift_u"],
         torch.maximum(wv_min.abs(), wv_max.abs()) * p["drift_v"]), min=1.0)
@@ -348,6 +378,7 @@ def sweep_bricks_reference(inp: BrickInputs):
     firsts = torch.full_like(lum, 2.0)
     nsamp = torch.zeros((T, th, TILE_W), dtype=torch.int32, device=dev)
     vol = inp.vol.reshape(-1)
+    grad = inp.grad.reshape(-1) if use_gradient else None
 
     def sample_brick(kb, sel, lum, alpha, firsts, nsamp):
         js = range(BRICK) if sgn > 0 else range(BRICK - 1, -1, -1)
@@ -373,17 +404,35 @@ def sweep_bricks_reference(inp: BrickInputs):
             w0 = torch.clamp(1.0 - (qv - r0.to(f)).abs(), min=0.0)[:, :, None]
             w1 = torch.clamp(1.0 - (qv - (r0 + 1).to(f)).abs(),
                              min=0.0)[:, :, None]
-            base = (k0_of(k) * (Sv * Su))[:, None, None]
+            if aligned:
+                kk0, fp = k0_of(k), None
+            else:
+                zp = s * float(Np) - 0.5
+                kk0 = _f2i(torch.floor(zp)).clamp(0, Np - 2)
+                fp = torch.clamp(zp - kk0.to(f), 0.0, 1.0)[:, None, None]
+            base = (kk0 * (Sv * Su))[:, None, None]
 
-            def tap(r, iu):
-                return vol[base + r[:, :, None] * Su + iu[:, None, :]].to(f)
+            def tap(src, r, iu):
+                idx = base + r[:, :, None] * Su + iu[:, None, :]
+                if aligned:
+                    return src[idx].to(f)
+                # Plane-pair lerp, quantised to u8.8 fixed point.
+                rowsf = (src[idx].to(f) * (1.0 - fp)
+                         + src[idx + Sv * Su].to(f) * fp)
+                return torch.round(rowsf * 256.0) * _INV256
 
-            v00, v01 = tap(r0, iu0), tap(r0, iu1)
-            v10, v11 = tap(r1, iu0), tap(r1, iu1)
-            c0 = v00 + (v01 - v00) * fu
-            c1 = v10 + (v11 - v10) * fu
-            intensity = (w0 * c0 + w1 * c1) * _INV255
-            a_tf = torch.clamp((intensity - p["imin"]) * p["iinv"], 0.0, 1.0)
+            def bilinear(src):
+                v00, v01 = tap(src, r0, iu0), tap(src, r0, iu1)
+                v10, v11 = tap(src, r1, iu0), tap(src, r1, iu1)
+                c0 = v00 + (v01 - v00) * fu
+                c1 = v10 + (v11 - v10) * fu
+                return (w0 * c0 + w1 * c1) * _INV255
+
+            a_tf = torch.clamp((bilinear(vol) - p["imin"]) * p["iinv"],
+                               0.0, 1.0)
+            if use_gradient:
+                a_tf = a_tf * torch.clamp(
+                    (bilinear(grad) - p["gmin"]) * p["ginv"], 0.0, 1.0)
             a_corr = torch.clamp(
                 p["vaf"] * (1.0 - torch.pow(1.0 - a_tf, kap)), 0.0, 1.0)
             contrib = in_rng & (a_tf > 0.0)
@@ -443,6 +492,9 @@ def sweep_bricks_kernel(inp: BrickInputs):
                                 (p["mp"], p["CVp"], TILE_W))
     cuda_build.require_cuda("vol", inp.vol, torch.uint8,
                             (p["Np"], p["Sv"], p["Su"]))
+    if p["use_gradient"]:
+        cuda_build.require_cuda("grad", inp.grad, torch.uint8,
+                                (p["Np"], p["Sv"], p["Su"]))
     cuda_build.require_cuda("kb_occ", inp.kb_occ, torch.int32, (2,))
     lib = cuda_build.load_kernels()
     dev = inp.vol.device
@@ -450,9 +502,11 @@ def sweep_bricks_kernel(inp: BrickInputs):
     alpha = torch.empty_like(lum)
     firsts = torch.empty_like(lum)
     nsamp = torch.empty((H, W), dtype=torch.int32, device=dev)
+    # Without a gradient TF the kernel never reads ``grad``.
+    grad = inp.grad if p["use_gradient"] else inp.vol
     ptrs = [t.data_ptr() for t in (
         inp.wu, inp.wv, inp.s_lo, inp.s_hi, inp.kappa, inp.cov, inp.coarse,
-        inp.cskip, inp.vol, inp.kb_occ, lum, alpha, firsts, nsamp)]
+        inp.cskip, inp.vol, grad, inp.kb_occ, lum, alpha, firsts, nsamp)]
     cuda_build.check(lib.vkv_sweep_bricks(
         *ptrs, cuda_build.BrickParams(**p), cuda_build.stream()),
         "sweep_bricks")
@@ -463,14 +517,16 @@ def sweep_bricks_kernel(inp: BrickInputs):
 def sweep_bricks(vol_t: torch.Tensor, occupancy_t: torch.Tensor,
                  tf: TFParams, uniforms: FrameUniforms, proj_view_model,
                  grid, *, p_axis: int, ert: bool, count_samples: bool,
-                 n_slabs: int, sgn: int, tile_h: int,
-                 dist_leap: bool) -> RenderOutput:
+                 n_slabs: int, sgn: int, tile_h: int, dist_leap: bool,
+                 grad_t: torch.Tensor | None = None) -> RenderOutput:
     """The brick sweep stage: ``grid`` = (wu, wv, s_lo, s_hi, kappa,
     covered) w-grid fields (see grid_fields); ``proj_view_model`` the host
-    (4, 4) float32 matrix for the first-hit depth."""
+    (4, 4) float32 matrix for the first-hit depth; ``grad_t`` the
+    transposed gradient map (gradient TFs)."""
     inp = brick_inputs(vol_t, occupancy_t, tf, uniforms, grid, p_axis=p_axis,
                        ert=ert, count_samples=count_samples, n_slabs=n_slabs,
-                       sgn=sgn, tile_h=tile_h, dist_leap=dist_leap)
+                       sgn=sgn, tile_h=tile_h, dist_leap=dist_leap,
+                       grad_t=grad_t)
     lum, alpha, firsts, nsamp = sweep_bricks_kernel(inp)
     f = torch.float32
     p = inp.params

@@ -12,9 +12,11 @@ two-pass warp to pixels — port of ``vkvolume_tpu/render/sweep_pallas.py``
   float through one float32 array, as in the JAX package: the frame sees
   exactly the float32 values the JAX frame sees.
 * ``_frame_body`` and ``_pixel_stage`` run only the brick-kernel branch and
-  the two-pass-warp branch. A plan that needs the per-slab sweep (no
-  ``R_brick``, or fewer slabs than voxel planes) or the single-pass warp
-  (no ``RECT_A``) raises NotImplementedError.
+  the two-pass-warp branch, with the closed-form intensity or gradient TF
+  and the ``Test.NUM_TEXTURE_SAMPLES`` diagnostic (the benchmark mode's
+  frame). A plan that needs the per-slab sweep (no ``R_brick``, or fewer
+  slabs than voxel planes) or the single-pass warp (no ``RECT_A``) raises
+  NotImplementedError.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import math
 import numpy as np
 import torch
 
+from ..options import Test
 from . import plan as plan_mod
 from . import sweep_bricks, warp_cuda
 from .ray_setup import (_SLICE_AXES, FrameUniforms, RaySetup, RenderOutput,
@@ -439,11 +442,13 @@ def warp_positions(gx: torch.Tensor, gy: torch.Tensor, gp, hcoef, *,
     return xa, gy_t.contiguous()
 
 
-def _pixel_stage(chans: torch.Tensor, rays: RaySetup, gp, hcoef, *,
+def _pixel_stage(chans: torch.Tensor, rays: RaySetup, gp, hcoef, tf, *,
                  p_axis: int, Hi: int, RECT_A, warp_variant: str,
-                 iterations: int) -> RenderOutput:
-    """Two-pass warp of the (C, Hi, Wi) grid channels (lum, alpha, depth)
-    to pixels, then the pixel-space outputs."""
+                 iterations: int, test: Test = Test.NONE,
+                 dim_max: int) -> RenderOutput:
+    """Two-pass warp of the (C, Hi, Wi) grid channels (lum, alpha, depth,
+    and the sample count under ``Test.NUM_TEXTURE_SAMPLES``) to pixels,
+    then the pixel-space outputs."""
     if RECT_A is None:
         raise NotImplementedError(
             "single-pass warp (warp_pallas._kernel, K8): ROADMAP queue B, "
@@ -453,8 +458,10 @@ def _pixel_stage(chans: torch.Tensor, rays: RaySetup, gp, hcoef, *,
     pos1, pos2 = warp_positions(gx, gy, gp, hcoef, Hi=Hi, Wi=chans.shape[2],
                                 warp_variant=warp_variant)
     # u16-encoded warp: lum/alpha/depth live in [0, 1] (depth is reverse-Z
-    # clip depth; no-hit pixels are overwritten below).
-    scales = [65535.0] * chans.shape[0]
+    # clip depth; no-hit pixels are overwritten below); the sample count is
+    # an integer far below 65535 (at most n_slabs), warped at scale 1.
+    num_test = test == Test.NUM_TEXTURE_SAMPLES
+    scales = ([65535.0] * 3 + [1.0])[:chans.shape[0]]
     warp = (warp_cuda.warp_two_pass_b if warp_variant == "B"
             else warp_cuda.warp_two_pass)
     warped = warp(chans, pos1, pos2, scales=scales)[:, :H, :]
@@ -463,7 +470,18 @@ def _pixel_stage(chans: torch.Tensor, rays: RaySetup, gp, hcoef, *,
     depth = torch.where(covered & (alpha > 0.0), depth, rays.depth_init)
     color = torch.stack([lum, lum, lum, alpha], -1)
     zi = torch.zeros((H, W), dtype=torch.int32, device=chans.device)
-    return RenderOutput(color=color, depth=depth, num_volume_samples=zi,
+    nsamp = zi
+    if num_test:
+        # Sample count over the reference's per-ray step budget
+        # floor(ceil(dim_max·√3)·sf) (sweep_pallas.py:1790-1800).
+        f32 = np.float32
+        n_steps_max = float(np.floor(np.ceil(f32(dim_max) * np.sqrt(f32(3.0)))
+                                     * f32(tf.sampling_factor)))
+        nsamp = warped[3].to(torch.int32)
+        val = warped[3] / n_steps_max
+        color = torch.stack([val, val, val, torch.ones_like(val)], -1)
+        color = torch.where(covered[..., None], color, 0.0)
+    return RenderOutput(color=color, depth=depth, num_volume_samples=nsamp,
                         num_distance_samples=zi, num_empty_samples=zi,
                         iterations=iterations)
 
@@ -472,10 +490,12 @@ def _frame_body(vol_t: torch.Tensor, occupancy_t: torch.Tensor, tf,
                 packed: np.ndarray, *, p_axis: int, Hi: int, Wi: int,
                 ert: bool, n_slabs: int, sgn_p: float, dist_leap: bool,
                 RECT_A, tile_h: int, R_brick, height: int, width: int,
-                warp_variant: str = "A") -> RenderOutput:
+                warp_variant: str = "A", grad_t: torch.Tensor | None = None,
+                test: Test = Test.NONE) -> RenderOutput:
     """One frame: pixel rays → w-grid fields → brick sweep (K1) → channel
     stack → two-pass warp (K2 twice) → pixel outputs. ``packed`` is
-    pack_frame_scalars' array."""
+    pack_frame_scalars' array; ``grad_t`` the gradient map transposed like
+    ``vol_t`` (gradient TFs)."""
     if R_brick is None or n_slabs < vol_t.shape[0] or Hi % tile_h:
         raise NotImplementedError(
             "per-slab sweep kernel (sweep_pallas._kernel, K7): ROADMAP "
@@ -487,13 +507,17 @@ def _frame_body(vol_t: torch.Tensor, occupancy_t: torch.Tensor, tf,
     sgn = 1 if sgn_p > 0 else -1
     s_lo, s_hi, cov, kappa = sweep_bricks.grid_fields(
         uniforms, wu_g, wv_g, sgn, p_axis, max(vol_t.shape), n_slabs)
+    num_test = test == Test.NUM_TEXTURE_SAMPLES
     grid_out = sweep_bricks.sweep_bricks(
         vol_t, occupancy_t, tf, uniforms, pvm,
         (wu_g, wv_g, s_lo, s_hi, kappa, cov), p_axis=p_axis, ert=ert,
-        count_samples=False, n_slabs=n_slabs, sgn=sgn, tile_h=tile_h,
-        dist_leap=dist_leap)
-    chans = torch.stack([grid_out.color[..., 0], grid_out.color[..., 3],
-                         grid_out.depth])
-    return _pixel_stage(chans, rays, gp, hcoef, p_axis=p_axis, Hi=Hi,
-                        RECT_A=RECT_A, warp_variant=warp_variant,
-                        iterations=grid_out.iterations)
+        count_samples=num_test, n_slabs=n_slabs, sgn=sgn, tile_h=tile_h,
+        dist_leap=dist_leap, grad_t=grad_t)
+    chans = [grid_out.color[..., 0], grid_out.color[..., 3], grid_out.depth]
+    if num_test:
+        chans.append(grid_out.num_volume_samples.to(torch.float32))
+    return _pixel_stage(torch.stack(chans), rays, gp, hcoef, tf,
+                        p_axis=p_axis, Hi=Hi, RECT_A=RECT_A,
+                        warp_variant=warp_variant,
+                        iterations=grid_out.iterations, test=test,
+                        dim_max=max(vol_t.shape))

@@ -1,10 +1,11 @@
 """Build and bind the package's CUDA kernels (``vkvolume_tpu_torch/csrc``).
 
-Every ``csrc/*.cu`` file exposes plain ``extern "C"`` launchers, so one nvcc
-call builds them all into a shared library with no PyTorch headers (seconds,
-not minutes), which ctypes loads. The library lands in ``build/`` beside the
-package, named by a hash of the sources and flags, so an edited source is
-rebuilt and an unchanged one is reused. The build runs at the first CUDA
+Every ``csrc/*.cu`` file exposes plain ``extern "C"`` launchers and
+includes no PyTorch headers, so each compiles in seconds: one nvcc process
+per source, all started together, then one link into a shared library,
+which ctypes loads. The library lands in ``build/`` beside the package,
+named by a hash of the sources and flags, so an edited source is rebuilt
+and an unchanged one is reused. The build runs at the first CUDA
 kernel call, never at import: machines without nvcc import and test the
 package through the plain PyTorch versions.
 
@@ -34,8 +35,7 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(CSRC)), "build")
 # their plain PyTorch versions do, which keeps sample counts and first-hit
 # planes identical between the two.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
-              "-Xcompiler", "-fPIC"]
+              "-O3", "-fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -58,10 +58,11 @@ class BrickParams(ctypes.Structure):
     types must match)."""
     _fields_ = [(name, ctypes.c_int) for name in (
         "Np", "Sv", "Su", "H", "W", "tile_h", "bp_p", "CV", "CU", "CVp",
-        "mp", "n_slabs", "sgn", "ert", "count_samples")] + [
+        "mp", "n_slabs", "sgn", "ert", "count_samples", "aligned",
+        "use_gradient")] + [
         (name, ctypes.c_float) for name in (
             "o_u", "o_v", "o_p", "ds", "imin", "iinv", "vaf", "inv_cvox_v",
-            "inv_cvox_u", "drift_u", "drift_v")]
+            "inv_cvox_u", "drift_u", "drift_v", "gmin", "ginv")]
 
 
 _SIGNATURES = {
@@ -71,11 +72,15 @@ _SIGNATURES = {
     "vkv_y_relax4": [_P, _P, _P, _I, _I, _I, _P],
     # (in4, out8, Z, Y, X, stream)
     "vkv_z_relax8": [_P, _P, _I, _I, _I, _P],
+    # (occ, xs, Z, Y, X, stream) / (in, out, Z, Y, X, stream)
+    "vkv_x_scan2": [_P, _P, _I, _I, _I, _P],
+    "vkv_y_relax2": [_P, _P, _I, _I, _I, _P],
+    "vkv_z_relax2": [_P, _P, _I, _I, _I, _P],
     # (src, pos, out, C, Hs, Ws, Wo, src_u16, encode_out, stream)
     "vkv_resample_rows": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # (wu, wv, s_lo, s_hi, kappa, cov, coarse, cskip, vol, kb_occ,
+    # (wu, wv, s_lo, s_hi, kappa, cov, coarse, cskip, vol, grad, kb_occ,
     #  lum, alpha, firsts, nsamp, params, stream)
-    "vkv_sweep_bricks": [_P] * 14 + [BrickParams, _P],
+    "vkv_sweep_bricks": [_P] * 15 + [BrickParams, _P],
 }
 
 
@@ -93,12 +98,27 @@ def load_kernels() -> ctypes.CDLL:
     os.makedirs(BUILD_DIR, exist_ok=True)
     so = os.path.join(BUILD_DIR, f"libvkvolume_kernels_{h.hexdigest()[:16]}.so")
     if not os.path.exists(so):
+        nvcc = _nvcc()
         tmp = f"{so}.tmp{os.getpid()}"
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources],
-                              capture_output=True, text=True)
-        build_log = proc.stdout + proc.stderr
+        objs = [f"{tmp}.{os.path.basename(src)}.o" for src in sources]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(sources, objs)]
+        logs = [(src, proc, proc.communicate()[0])
+                for src, proc in zip(sources, procs)]
+        build_log = "".join(f"== {os.path.basename(src)}\n{out}"
+                            for src, _, out in logs)
+        if any(proc.returncode for _, proc, _ in logs):
+            raise RuntimeError(f"nvcc failed:\n{build_log}")
+        proc = subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o", tmp,
+                               *objs], capture_output=True, text=True)
+        build_log += proc.stdout + proc.stderr
+        for obj in objs:
+            os.remove(obj)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{build_log}")
         os.replace(tmp, so)
     lib = ctypes.CDLL(so)
     for name, argtypes in _SIGNATURES.items():
