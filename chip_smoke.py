@@ -28,8 +28,29 @@ full-scale synthetic stag beetle (494x832x832 u8) into bench.py's engine
      version, K5, the two-sided K4 and K1's variant against their plain
      versions (timing both), the frame against the plain-PyTorch frame, the
      plan (brick sweep, two-pass warp) and the PNG (>= 5 % covered); times
-     ms/frame and map_update_ms; runs ``--benchmark 20`` once;
-  5. prints the kernel table and, as the last line,
+     ms/frame and map_update_ms; runs ``--benchmark 20`` once; then, with
+     the counters at 0 again, the accel API's relaxation (K6) completes the
+     isotropic map from K5's output, bit-exact to the engine's map, and K6
+     is held bit-exact to its plain version on both axes and all senses;
+  5. the orbit, with the counters at 0 before each run:
+     (a) ``cli --synth beetle --azimuth 80 --sampling 0.25 --output <png>``:
+         the engine narrows the view's 384-lane plan to a 256-lane re-plan,
+         whose frame runs the per-slab sweep (K7: 416 slabs < 832 planes)
+         and the single-pass warp (K8); checks both launched, the frame
+         against the plain-PyTorch frame and the PNG; holds K7 (gradient
+         and intensity TF) and K8 against their plain versions on this
+         frame's inputs (K7 sample counts and first-hit planes exact,
+         lum/alpha within 1e-5; K8 within 1e-6) and times them, K8 beside
+         ``grid_sample``;
+     (b) ``cli --synth beetle --benchmark 20 --orbit 5`` (azimuths 30-125,
+         ERT off, sample counts): prints the fps line and
+         ``renderer_counts``, checks that K1, K2, K7 and K8 launched and
+         that some frames took the gather warp, holds the frames at
+         azimuths 35, 40 and 90 against the plain-PyTorch frames and times
+         one pose of each route;
+  6. prints the kernel table (each kernel's time, its plain version's,
+     the least time the card could take for the same work, and a PyTorch
+     call's where one computes the same function) and, as the last line,
      {"ok": true, "device": {...}}.
 
 Any failure raises: the script exits non-zero and prints no result. It
@@ -57,6 +78,68 @@ MIN_COVERED = 0.05      # share of pixels with alpha > 0 the frame must show
 FRAME_TOL = 2e-3        # per-pixel colour tolerance (tests/test_torch_frame)
 FRAME_BAD_SHARE = 1e-3  # share of pixels allowed beyond it
 FRAME_ALPHA_MEAN = 1e-4  # mean alpha difference allowed
+STILL_AZIMUTH, STILL_SAMPLING = 80.0, 0.25   # phase 5a's still frame
+ORBIT_POSES = {30.0: ("K1", "K2"), 35.0: ("K7", "K2"), 40.0: ("K7", "gather"),
+               90.0: ("K1", "K8")}   # benchmark-orbit azimuth: its route
+
+# The least time the card could take for a kernel's work: the larger of its
+# bytes (each input read once, each output written once) over the H100's
+# device-memory rate and its operations over its float32 rate outside the
+# tensor cores (the integer loops of the distance kernels are counted at
+# the same rate). Both are NVIDIA's published H100 SXM figures at 700 W.
+HBM_BYTES_PER_S = 3.35e12
+SCALAR_OPS_PER_S = 67e12
+# Operations per unit of work, counted from the kernels' sources: one
+# sweep sample (index arithmetic, 8 taps and their lerps per volume, TF,
+# powf counted as 20, compositing) with an intensity TF and with a
+# gradient TF; one step of a distance loop in one sense (load, max, min,
+# compare); one warped pixel, plus one channel.
+OPS_PER_SAMPLE = {False: 95, True: 134}
+OPS_PER_STEP = 4
+OPS_PER_PIXEL, OPS_PER_CHANNEL = 14, 7
+
+
+def bound(nbytes: float, ops: float) -> dict:
+    """bound_ms / bound_by of a kernel's work."""
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_o = ops / SCALAR_OPS_PER_S * 1e3
+    return ({"bound_ms": t_b, "bound_by": "bytes"} if t_b >= t_o
+            else {"bound_ms": t_o, "bound_by": "operations"})
+
+
+def total(t) -> int:
+    """Sum of an integer tensor (a map's distances: its cells' loop
+    steps)."""
+    import torch
+
+    return int(t.to(torch.int64).sum())
+
+
+def needed_reads(inp) -> dict:
+    """Empty sector maps of the volume and the gradient map, for a plain
+    sweep's ``reads``."""
+    from vkvolume_tpu_torch.render.sweep_bricks import sector_map
+
+    return {"vol": sector_map(inp.vol),
+            "grad": None if inp.grad is None else sector_map(inp.grad)}
+
+
+def sweep_bound(inp, nsamp, reads, gradient: bool) -> dict:
+    """bound_ms of a sweep kernel (K1 or K7) on ``inp``: the 32-byte
+    sectors of the volume and the gradient map that this run's samples
+    need (``reads``, filled by the plain version: ESS leaps, ERT and the
+    zero-intensity samples' gradient taps read nothing), the per-cell
+    fields (five f32 and the coverage byte) in, lum / alpha / first hit /
+    count (4 B each) out, the coarse maps once; the operations of this
+    run's samples (``nsamp``, counted by the kernel)."""
+    maps = [s for s in reads.values() if s is not None]
+    needed = 32 * sum(int(s.sum()) for s in maps)
+    log(f"  bound: the samples need {needed / 1e6:.3f} MB of the "
+        f"{32 * sum(s.numel() for s in maps) / 1e6:.3f} MB of volume maps")
+    nbytes = needed + 37 * inp.wu.numel() + inp.coarse.numel()
+    if getattr(inp, "cskip", None) is not None:           # K1's tight map
+        nbytes += inp.cskip.numel()
+    return bound(nbytes, OPS_PER_SAMPLE[gradient] * total(nsamp))
 
 
 def log(msg: str) -> None:
@@ -152,16 +235,22 @@ def phase_kernels(eng, cam, timer):
     for i in range(8):
         assert torch.equal(z_k[i], z_p[i]), f"K4 octant map {i} differs"
     assert torch.equal(v.dist_maps, z_p), "engine maps differ"
+    # K3's steps: each output's x-scan and y-relax loops, each bounded by
+    # the output's distance.
     rows["K3"] = dict(max_abs_err=0.0,
                       ms=timer(lambda: distance_cuda.scan_and_relax_multi(occ),
                                20),
                       plain_ms=timer(lambda: distance.scan_and_relax_multi(occ),
-                                     2))
+                                     2),
+                      **bound(occ.numel() + xy_k.numel(),
+                              2 * OPS_PER_STEP * total(xy_k)))
     rows["K4"] = dict(max_abs_err=0.0,
                       ms=timer(lambda: distance_cuda.relax_z_direct_multi(xy_k),
                                20),
                       plain_ms=timer(lambda: distance.relax_z_direct_multi(xy_k),
-                                     2))
+                                     2),
+                      **bound(xy_k.numel() + z_k.numel(),
+                              OPS_PER_STEP * total(z_k)))
     log(f"phase 2: K3+K4 bit-exact on 8 maps {tuple(z_k.shape)}")
 
     # K1 on the frame's own grid fields and maps.
@@ -182,7 +271,8 @@ def phase_kernels(eng, cam, timer):
     inp = sweep_bricks.brick_inputs(vol_t, occ_t, eng._tf(v), u, grid,
                                     count_samples=True, **kw)
     lum_k, a_k, f_k, n_k = sweep_bricks.sweep_bricks_kernel(inp)
-    lum_p, a_p, f_p, n_p = sweep_bricks.sweep_bricks_reference(inp)
+    reads = needed_reads(inp)
+    lum_p, a_p, f_p, n_p = sweep_bricks.sweep_bricks_reference(inp, reads)
     assert torch.equal(n_k, n_p), "K1 sample counts differ"
     assert torch.equal(f_k, f_p), "K1 first-hit planes differ"
     err = max(float((lum_k - lum_p).abs().max()),
@@ -196,7 +286,8 @@ def phase_kernels(eng, cam, timer):
                       ms=timer(lambda: sweep_bricks.sweep_bricks_kernel(inp),
                                10),
                       plain_ms=timer(
-                          lambda: sweep_bricks.sweep_bricks_reference(inp), 1))
+                          lambda: sweep_bricks.sweep_bricks_reference(inp), 1),
+                      **sweep_bound(inp, n_k, reads, False))
     log(f"phase 2: K1 exact nsamp/firsts, lum/alpha err {err:.3g}, grid "
         f"{plan['Hi']}x{plan['Wi']} tile_h={plan['tile_h']} "
         f"samples={int(n_k.sum())}")
@@ -231,6 +322,7 @@ def phase_kernels(eng, cam, timer):
                    - warp_cuda.resample_rows_reference(src, pos)).abs().max())
         assert d <= 1e-6, f"K2 f32 differs by {d}"
         err = max(err, d)
+    C = enc1.shape[0]
     rows["K2"] = dict(
         max_abs_err=max(err, d16 / 65535.0),
         ms=timer(lambda: (warp_cuda.resample_rows(enc1, pos1,
@@ -238,7 +330,11 @@ def phase_kernels(eng, cam, timer):
                           warp_cuda.resample_rows(src2, pos2)), 20),
         plain_ms=timer(lambda: (
             warp_cuda.resample_rows_reference(enc1, pos1, encode_out=True),
-            warp_cuda.resample_rows_reference(src2, pos2)), 3))
+            warp_cuda.resample_rows_reference(src2, pos2)), 3),
+        # Both passes: u16 sources, f32 positions, u16 then f32 outputs.
+        **bound(2 * enc1.numel() + 4 * pos1.numel() + 2 * C * pos1.numel()
+                + 2 * src2.numel() + 4 * pos2.numel() + 4 * C * pos2.numel(),
+                OPS_PER_CHANNEL * C * (pos1.numel() + pos2.numel())))
     log(f"phase 2: K2 u16 within {d16} LSB, f32 err {err:.3g}; positions "
         f"{tuple(pos1.shape)} -> {tuple(pos2.shape)}")
     return rows
@@ -246,38 +342,46 @@ def phase_kernels(eng, cam, timer):
 
 def reset_launches():
     from vkvolume_tpu_torch.accel import distance_cuda
-    from vkvolume_tpu_torch.render import sweep_bricks, warp_cuda
+    from vkvolume_tpu_torch.render import sweep_bricks, sweep_slabs, warp_cuda
 
     for table in (distance_cuda.LAUNCHES, sweep_bricks.LAUNCHES,
-                  warp_cuda.LAUNCHES):
+                  sweep_slabs.LAUNCHES, warp_cuda.LAUNCHES):
         for k in table:
             table[k] = 0
 
 
 def read_launches():
     from vkvolume_tpu_torch.accel import distance_cuda
-    from vkvolume_tpu_torch.render import sweep_bricks, warp_cuda
+    from vkvolume_tpu_torch.render import sweep_bricks, sweep_slabs, warp_cuda
 
     return {"K1": sweep_bricks.LAUNCHES["sweep_bricks"],
             "K2": warp_cuda.LAUNCHES["resample_rows"],
             "K3": distance_cuda.LAUNCHES["scan_and_relax_multi"],
             "K4": distance_cuda.LAUNCHES["relax_z_direct_multi"],
             "K4 two-sided": distance_cuda.LAUNCHES["relax_z_direct"],
-            "K5": distance_cuda.LAUNCHES["scan_and_relax"]}
+            "K5": distance_cuda.LAUNCHES["scan_and_relax"],
+            "K6": distance_cuda.LAUNCHES["relax"],
+            "K7": sweep_slabs.LAUNCHES["sweep_slabs"],
+            "K8": warp_cuda.LAUNCHES["warp_to_pixels"]}
 
 
 def plain_frame(eng, cam, width=WIDTH, height=HEIGHT):
-    """The same frame with K1 and K2 swapped for their plain versions (the
-    maps are the kernels', held bit-exact to the plain maps in phase 2)."""
-    from vkvolume_tpu_torch.render import sweep_bricks, warp_cuda
+    """The same frame with K1, K2, K7 and K8 swapped for their plain
+    versions (the maps are the kernels', held bit-exact to the plain maps
+    in phases 2 and 4)."""
+    from vkvolume_tpu_torch.render import sweep_bricks, sweep_slabs, warp_cuda
 
-    saved = (sweep_bricks.sweep_bricks_kernel, warp_cuda.resample_rows)
+    saved = (sweep_bricks.sweep_bricks_kernel, warp_cuda.resample_rows,
+             sweep_slabs.sweep_slabs_kernel, warp_cuda.warp_to_pixels)
     sweep_bricks.sweep_bricks_kernel = sweep_bricks.sweep_bricks_reference
     warp_cuda.resample_rows = warp_cuda.resample_rows_reference
+    sweep_slabs.sweep_slabs_kernel = sweep_slabs.sweep_slabs_plain
+    warp_cuda.warp_to_pixels = warp_cuda.warp_to_pixels_plain
     try:
         return eng.render(cam, width, height)
     finally:
-        sweep_bricks.sweep_bricks_kernel, warp_cuda.resample_rows = saved
+        (sweep_bricks.sweep_bricks_kernel, warp_cuda.resample_rows,
+         sweep_slabs.sweep_slabs_kernel, warp_cuda.warp_to_pixels) = saved
 
 
 def frame_reps(eng, cam, width, height):
@@ -420,14 +524,18 @@ def phase_cli(timer, out_dir):
     z_k = distance_cuda.relax_z_direct(xy_k[0])
     assert torch.equal(z_k, distance.relax_z_direct(xy_k[0], (0,))), \
         "two-sided K4 differs from its plain version"
+    # Two senses per step; K5 runs an x-scan and a y-relax.
     rows["K5"] = dict(max_abs_err=0.0,
                       ms=timer(lambda: distance_cuda.scan_and_relax(occ), 20),
                       plain_ms=timer(lambda: distance.scan_and_relax(
-                          occ, 0, (0,)), 2))
+                          occ, 0, (0,)), 2),
+                      **bound(occ.numel() + xy_k.numel(),
+                              4 * OPS_PER_STEP * total(xy_k)))
     rows["K4 two-sided"] = dict(
         max_abs_err=0.0,
         ms=timer(lambda: distance_cuda.relax_z_direct(xy_k[0]), 20),
-        plain_ms=timer(lambda: distance.relax_z_direct(xy_k[0], (0,)), 2))
+        plain_ms=timer(lambda: distance.relax_z_direct(xy_k[0], (0,)), 2),
+        **bound(xy_k.numel() + z_k.numel(), 2 * OPS_PER_STEP * total(z_k)))
     log(f"phase 4: isotropic map bit-exact {tuple(z_k.shape)}, max "
         f"{int(z_k.max())}")
 
@@ -446,7 +554,8 @@ def phase_cli(timer, out_dir):
                                     count_samples=True, **kw)
     assert inp.params["use_gradient"] and not inp.params["aligned"]
     lum_k, a_k, f_k, n_k = sweep_bricks.sweep_bricks_kernel(inp)
-    lum_p, a_p, f_p, n_p = sweep_bricks.sweep_bricks_reference(inp)
+    reads = needed_reads(inp)
+    lum_p, a_p, f_p, n_p = sweep_bricks.sweep_bricks_reference(inp, reads)
     assert torch.equal(n_k, n_p), "K1 (gradient + lerp) sample counts differ"
     assert torch.equal(f_k, f_p), "K1 (gradient + lerp) first hits differ"
     err = max(float((lum_k - lum_p).abs().max()),
@@ -458,7 +567,8 @@ def phase_cli(timer, out_dir):
     rows["K1 gradient + lerp"] = dict(
         max_abs_err=err,
         ms=timer(lambda: sweep_bricks.sweep_bricks_kernel(inp), 10),
-        plain_ms=timer(lambda: sweep_bricks.sweep_bricks_reference(inp), 1))
+        plain_ms=timer(lambda: sweep_bricks.sweep_bricks_reference(inp), 1),
+        **sweep_bound(inp, n_k, reads, True))
     log(f"phase 4: K1 gradient + lerp exact nsamp/firsts, lum/alpha err "
         f"{err:.3g}, samples={int(n_k.sum())}")
 
@@ -490,7 +600,225 @@ def phase_cli(timer, out_dir):
     assert f"ran {CLI_BENCH_FRAMES} frames, averaged " in buf.getvalue()
     assert bool(torch.isfinite(bout.color).all())
     assert int(bout.num_volume_samples.max()) > 0
-    return rows, launches, frame_ms, map_ms
+    return rows, launches, frame_ms, map_ms, eng
+
+
+def phase_accel(eng, timer):
+    """K6 through the accel API: one two-sided z relaxation of K5's output
+    completes the isotropic map, which must be the engine's; then K6
+    against its plain version on both axes and in all senses."""
+    import torch
+    from vkvolume_tpu_torch.accel import distance, distance_cuda
+    from vkvolume_tpu_torch.accel.occupancy import (_occupancy_u8,
+                                                    _tf_thresholds)
+
+    v = eng.volumes[0]
+    o = v.options
+    ti, tg = _tf_thresholds((o.intensity_min, o.intensity_max,
+                             o.gradient_min, o.gradient_max))
+    occ = _occupancy_u8(v.density, v.gradient, v.map_shape_zyx, ti, tg)
+    torch.cuda.synchronize()
+    reset_launches()
+    iso = distance_cuda.relax(distance_cuda.scan_and_relax(occ)[0], 0, 0)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    log(f"phase 4: accel API launches {launches}")
+    assert launches["K6"] > 0, "K6 never ran"
+    assert torch.equal(iso, v.dist_maps[0]), \
+        "K5 + K6 isotropic map differs from the engine's"
+    xy = distance_cuda.scan_and_relax(occ)[0]
+    xs = distance.axis_scan(occ, 2, 0).clamp(max=255).to(torch.uint8)
+    for src in (xs, xy):
+        for axis in (0, 1):
+            for direction in (0, 1, -1):
+                assert torch.equal(
+                    distance_cuda.relax(src, axis, direction),
+                    distance.relax(src, axis, direction).to(torch.uint8)), \
+                    f"K6 axis {axis} direction {direction} differs"
+    row = dict(max_abs_err=0.0,
+               ms=timer(lambda: distance_cuda.relax(xy, 0, 0), 20),
+               plain_ms=timer(lambda: distance.relax(xy, 0, 0), 2),
+               **bound(xy.numel() + iso.numel(),
+                       2 * OPS_PER_STEP * total(iso)))
+    log(f"phase 4: K6 bit-exact (axes 0 and 1, senses 0, +1, -1) on "
+        f"{tuple(xs.shape)}; K5 + K6 = the engine's isotropic map")
+    return {"K6": row}, launches
+
+
+def route_of(launches) -> tuple:
+    """(sweep, warp) of one frame from its kernel launches."""
+    sweep = "K1" if launches["K1"] else "K7" if launches["K7"] else None
+    warp = ("K2" if launches["K2"] else "K8" if launches["K8"]
+            else "gather")
+    return sweep, warp
+
+
+def phase_orbit(timer, out_dir):
+    """(a) the still frame through K7 + K8, (b) the benchmark orbit."""
+    import torch
+    from vkvolume_tpu_torch import cli
+    from vkvolume_tpu_torch.bench.harness import benchmark_camera
+    from vkvolume_tpu_torch.render import sweep_frame, sweep_slabs, warp_cuda
+    from vkvolume_tpu_torch.render.ray_setup import make_rays
+    from vkvolume_tpu_torch.utils.image import read_png
+
+    rows = {}
+    png = os.path.join(out_dir, "still.png")
+    reset_launches()
+    eng, _, out = cli.run(["--synth", "beetle", "--azimuth",
+                           str(STILL_AZIMUTH), "--sampling",
+                           str(STILL_SAMPLING), "--output", png])
+    torch.cuda.synchronize()
+    launches_a = read_launches()
+    log(f"phase 5a: launches {launches_a}")
+    assert launches_a["K7"] > 0 and launches_a["K8"] > 0, \
+        "K7 or K8 never ran on the still frame"
+    assert route_of(launches_a) == ("K7", "K8")
+    v = eng.volumes[0]
+    cam = cli.cli_camera(CLI_WIDTH, CLI_HEIGHT, STILL_AZIMUTH)
+    pose, vol_t, occ_t = frame_pose(eng, cam)
+    plan, p = pose["plan_narrow"], pose["view"]["p_axis"]
+    tf = eng._tf(v)
+    n_slabs = int(max(2, round(vol_t.shape[0] * eng._slab_oversample(
+        v, vol_t.shape, tf))))
+    log(f"phase 5a: plan rect_w {pose['plan']['rect_w']} -> narrowed "
+        f"Hi={plan['Hi']} Wi={plan['Wi']} R_sweep={plan['R_sweep']} "
+        f"R_warp={plan['R_warp']} RECT_A={plan['RECT_A']} p_axis={p} "
+        f"vol_t={tuple(vol_t.shape)} n_slabs={n_slabs}")
+    assert pose["plan"]["rect_w"] > 256 and plan["rect_w"] == 256
+    assert plan["R_warp"] is not None and plan["RECT_A"] is None
+    assert n_slabs < vol_t.shape[0], "expected fewer slabs than planes"
+    color = out.color
+    assert tuple(color.shape) == (CLI_HEIGHT, CLI_WIDTH, 4)
+    assert bool(torch.isfinite(color).all())
+    img = read_png(png)
+    covered = float((img.max(axis=-1) > 0).mean())
+    log(f"phase 5a: PNG {img.shape} covered share {covered:.4f}, u8 mean "
+        f"{img.mean():.3f}")
+    assert img.shape == (CLI_HEIGHT, CLI_WIDTH, 3)
+    assert covered >= MIN_COVERED, f"PNG nearly empty ({covered})"
+    check_against_plain_frame(eng, cam, color, CLI_WIDTH, CLI_HEIGHT,
+                              "phase 5a")
+    eng.render(cam, CLI_WIDTH, CLI_HEIGHT)
+    torch.cuda.synchronize()
+    reps, _ = frame_reps(eng, cam, CLI_WIDTH, CLI_HEIGHT)
+    still_ms = statistics.median(reps)
+    log(f"phase 5a: ms/frame median={still_ms:.4f} reps="
+        f"{[round(r, 4) for r in reps]} ({FRAMES} frames x {REPS} reps, "
+        f"{CLI_WIDTH}x{CLI_HEIGHT}, K7 + K8)")
+
+    # K7 on this frame's own inputs: the gradient TF of the path, and the
+    # intensity-only variant on the same rays and maps.
+    u, pvm, gp, _ = sweep_frame.unpack_frame_scalars(pose["packed"])
+    dev = vol_t.device
+    wu, wv = sweep_frame.w_grid(gp, plan["Hi"], plan["Wi"], dev)
+    rays = sweep_frame.grid_rays(u, wu, wv, p, plan["sgn_p"])
+    grad_t = v._sweep_cache[("grad", p)]
+    kw = dict(p_axis=p, ert=eng.options.early_ray_termination,
+              n_slabs=n_slabs, dist_leap=True, separable=True)
+    for variant, g in (("gradient", grad_t), ("intensity", None)):
+        inp = sweep_slabs.slab_inputs(vol_t, occ_t, tf, rays, u, g,
+                                      count_samples=True, **kw)
+        assert bool(inp.params["use_gradient"]) == (g is not None)
+        lum_k, a_k, f_k, n_k = sweep_slabs.sweep_slabs_kernel(inp)
+        reads = needed_reads(inp)
+        lum_p, a_p, f_p, n_p = sweep_slabs.sweep_slabs_plain(inp, reads)
+        assert torch.equal(n_k, n_p), f"K7 ({variant}) sample counts differ"
+        assert torch.equal(f_k, f_p), f"K7 ({variant}) first hits differ"
+        err = max(float((lum_k - lum_p).abs().max()),
+                  float((a_k - a_p).abs().max()))
+        assert err <= 1e-5, f"K7 ({variant}) lum/alpha differ by {err}"
+        assert int(n_k.sum()) > 0 and float(a_k.max()) > 0.5
+        log(f"phase 5a: K7 {variant} TF exact nsamp/firsts, lum/alpha err "
+            f"{err:.3g}, samples={int(n_k.sum())}")
+        if g is not None:
+            timed = sweep_slabs.slab_inputs(vol_t, occ_t, tf, rays, u, g,
+                                            count_samples=False, **kw)
+            rows["K7"] = dict(
+                max_abs_err=err,
+                ms=timer(lambda: sweep_slabs.sweep_slabs_kernel(timed), 10),
+                plain_ms=timer(lambda: sweep_slabs.sweep_slabs_plain(timed),
+                               1),
+                **sweep_bound(timed, n_k, reads, True))
+
+    # K8 on this frame's grid channels and pixel positions.
+    grid_out = sweep_slabs.sweep_slabs(
+        vol_t, occ_t, tf, rays, u, pvm, grad_t, p_axis=p,
+        ert=eng.options.early_ray_termination,
+        n_slabs=n_slabs, separable=True, dist_leap=True)
+    chans = torch.stack([grid_out.color[..., 0], grid_out.color[..., 3],
+                         grid_out.depth]).contiguous()
+    gx, gy = sweep_frame.pixel_grid_coords(
+        make_rays(u, CLI_HEIGHT, CLI_WIDTH, dev), gp, p)
+    gx, gy = gx.contiguous(), gy.contiguous()
+    w_k = warp_cuda.warp_to_pixels(chans, gx, gy)
+    w_p = warp_cuda.warp_to_pixels_plain(chans, gx, gy)
+    err = float((w_k - w_p).abs().max())
+    assert err <= 1e-6, f"K8 differs by {err}"
+    C, Hi, Wi = chans.shape
+    # The yardstick: grid_sample on the same positions (normalised once,
+    # outside the timing), border padding, then the uncovered mask.
+    grid = torch.stack([gx / (Wi - 1) * 2.0 - 1.0,
+                        gy / (Hi - 1) * 2.0 - 1.0], -1)[None]
+    inside = (gx > -5.0)[None]
+
+    def library():
+        o = torch.nn.functional.grid_sample(
+            chans[None], grid, mode="bilinear", padding_mode="border",
+            align_corners=True)[0]
+        return torch.where(inside, o, 0.0)
+
+    lib_err = float((library() - w_p).abs().max())
+    assert lib_err <= 1e-4, f"grid_sample differs by {lib_err}"
+    n_pix = gx.numel()
+    rows["K8"] = dict(
+        max_abs_err=err,
+        ms=timer(lambda: warp_cuda.warp_to_pixels(chans, gx, gy), 20),
+        plain_ms=timer(lambda: warp_cuda.warp_to_pixels_plain(chans, gx, gy),
+                       5),
+        library_ms=timer(library, 20),
+        **bound(4 * chans.numel() + 8 * n_pix + 4 * C * n_pix,
+                (OPS_PER_PIXEL + OPS_PER_CHANNEL * C) * n_pix))
+    log(f"phase 5a: K8 err {err:.3g} on ({C}, {Hi}, {Wi}) -> {tuple(gx.shape)}"
+        f"; grid_sample differs from it by {lib_err:.3g}")
+    del eng, grid_out, chans, rays, inp, timed
+    torch.cuda.empty_cache()
+
+    # (b) The benchmark orbit.
+    buf = io.StringIO()
+    reset_launches()
+    with contextlib.redirect_stdout(buf):
+        eng, _, bout = cli.run(["--synth", "beetle", "--benchmark",
+                                str(CLI_BENCH_FRAMES), "--orbit", "5"])
+    torch.cuda.synchronize()
+    launches_b = read_launches()
+    for line in buf.getvalue().splitlines():
+        log(f"phase 5b --benchmark {CLI_BENCH_FRAMES} --orbit 5: {line}")
+    log(f"phase 5b: renderer_counts {eng.renderer_counts}")
+    log(f"phase 5b: launches {launches_b}")
+    assert f"ran {CLI_BENCH_FRAMES} frames, averaged " in buf.getvalue()
+    assert all(launches_b[k] > 0 for k in ("K1", "K2", "K7", "K8")), \
+        "a kernel of the orbit never ran"
+    assert eng.renderer_counts.get("pallas_xla_warp", 0) > 0
+    assert eng.renderer_counts["pallas"] == CLI_BENCH_FRAMES + 1
+    assert bool(torch.isfinite(bout.color).all())
+    tiers = {}
+    aspect = CLI_WIDTH / CLI_HEIGHT
+    for az, route in ORBIT_POSES.items():
+        cam = benchmark_camera(aspect, az, 20.0)
+        reset_launches()
+        color = eng.render(cam, CLI_WIDTH, CLI_HEIGHT).color
+        torch.cuda.synchronize()
+        got = route_of(read_launches())
+        assert got == route, f"azimuth {az}: route {got}, expected {route}"
+        ms = timer(lambda: eng.render(cam, CLI_WIDTH, CLI_HEIGHT), 5)
+        tiers[az] = ms
+        log(f"phase 5b: azimuth {az:.0f} {got[0]} + {got[1]}: {ms:.4f} "
+            f"ms/frame ({CLI_WIDTH}x{CLI_HEIGHT}, benchmark mode)")
+        if az != 30.0:
+            check_against_plain_frame(eng, cam, color, CLI_WIDTH, CLI_HEIGHT,
+                                      f"phase 5b azimuth {az:.0f}")
+    return rows, launches_a, launches_b, still_ms, tiers
 
 
 def main() -> int:
@@ -521,9 +849,15 @@ def main() -> int:
     frame_ms, _, launches = phase_frame(eng, cam)
     del eng
     with tempfile.TemporaryDirectory() as out_dir:
-        cli_rows, cli_launches, cli_ms, cli_map_ms = phase_cli(gpu_timer,
-                                                               out_dir)
-    rows.update(cli_rows)
+        cli_rows, cli_launches, cli_ms, cli_map_ms, cli_eng = phase_cli(
+            gpu_timer, out_dir)
+        accel_rows, accel_launches = phase_accel(cli_eng, gpu_timer)
+        del cli_eng
+        torch.cuda.empty_cache()
+        orbit_rows, still_launches, orbit_launches, still_ms, tiers = \
+            phase_orbit(gpu_timer, out_dir)
+    for more in (cli_rows, accel_rows, orbit_rows):
+        rows.update(more)
     assert "jax" not in sys.modules
 
     # (row, launch count of its path, source, TPU kernel body it replaces)
@@ -551,19 +885,38 @@ def main() -> int:
         "K5": ("scan_and_relax (two-sided x-scan + y-relax; isotropic)",
                cli_launches["K5"], "vkvolume_tpu_torch/csrc/distance.cu",
                "vkvolume_tpu/accel/distance_pallas.py:136"),
+        "K6": ("relax (one relaxation, z two-sided; accel API)",
+               accel_launches["K6"], "vkvolume_tpu_torch/csrc/distance.cu",
+               "vkvolume_tpu/accel/distance_pallas.py:175"),
+        "K7": ("sweep_slabs (gradient TF; narrowed still frame)",
+               still_launches["K7"], "vkvolume_tpu_torch/csrc/sweep_slabs.cu",
+               "vkvolume_tpu/render/sweep_pallas.py:58"),
+        "K8": ("warp_to_pixels (3 channels; narrowed still frame)",
+               still_launches["K8"], "vkvolume_tpu_torch/csrc/warp_pixels.cu",
+               "vkvolume_tpu/render/warp_pallas.py:26"),
     }
     kernels = []
     for k, (name, n, source, replaces) in where.items():
         r = rows[k]
-        log(f"{k} {name}: {r['ms']:.4f} ms vs plain {r['plain_ms']:.4f} ms "
-            f"(max abs err {r['max_abs_err']:.3g}, launches {n})")
+        lib = r.get("library_ms")
+        log(f"{k} {name}: {r['ms']:.4f} ms vs plain {r['plain_ms']:.4f} ms, "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), library "
+            f"{'none' if lib is None else f'{lib:.4f} ms'} (max abs err "
+            f"{r['max_abs_err']:.3g}, launches {n})")
         kernels.append({"name": f"{k.split()[0]} {name}", "route": "cuda",
                         "source": source, "replaces": replaces,
                         "launches": n, "max_abs_err": r["max_abs_err"],
-                        "ms": r["ms"], "plain_ms": r["plain_ms"]})
+                        "ms": r["ms"], "plain_ms": r["plain_ms"],
+                        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                        "library_ms": lib})
     log(f"frame_ms_median {frame_ms:.4f} ({WIDTH}x{HEIGHT}, skipmode 3)")
     log(f"cli_frame_ms_median {cli_ms:.4f} cli_map_update_ms {cli_map_ms:.4f} "
         f"({CLI_WIDTH}x{CLI_HEIGHT}, skipmode 2, gradient TF)")
+    log(f"still_k7_k8_frame_ms_median {still_ms:.4f} (azimuth "
+        f"{STILL_AZIMUTH:.0f}, sampling {STILL_SAMPLING}, {CLI_WIDTH}x"
+        f"{CLI_HEIGHT}); orbit ms/frame by azimuth "
+        + ", ".join(f"{az:.0f}: {ms:.4f}" for az, ms in tiers.items()))
+    log(f"orbit launches {orbit_launches}")
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -23,7 +23,8 @@ def engines():
     jeng, jstats, vol, _ = jh.make_engine("beetle", 3, 4, scale=0.1,
                                           test=JTest.NONE, ert=True)
     teng, tstats, _, _ = th.make_engine("beetle", 3, 4, volume_u8=vol,
-                                        test=TTest.NONE, ert=True)
+                                        test=TTest.NONE, ert=True,
+                                        device="cpu")
     return jeng, jstats, teng, tstats
 
 
@@ -98,15 +99,31 @@ def test_unaligned_size_matches_jax_padded_frame(monkeypatch, engines):
 
 
 def test_unported_paths_raise(engines):
+    """Views the port does not render yet raise, naming their ROADMAP item:
+    a wide-FOV camera inside the volume (mixed principal-axis signs need
+    the per-ray marcher) and the ray entry / exit diagnostic frames."""
+    from vkvolume_tpu_torch.camera import orbit_camera
+
     _, _, teng, _ = engines
+    inside = orbit_camera(radius=10.0, azimuth_deg=45, elevation_deg=35,
+                          fovy_deg=120.0, aspect=1.0)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue A, item 10"):
+        teng.render(inside, 256, 256)
     cam = jh.benchmark_camera(aspect=2.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        teng.render(cam, 256, 128)        # this plan has no two-pass warp
+    for test in (TTest.RAY_ENTRY, TTest.RAY_EXIT):
+        teng.options.test = test
+        try:
+            with pytest.raises(NotImplementedError,
+                               match="ROADMAP queue A, item 4"):
+                teng.render(cam, 256, 128)
+        finally:
+            teng.options.test = TTest.NONE
 
 
 def test_port_never_imports_jax():
     code = ("import sys, vkvolume_tpu_torch, vkvolume_tpu_torch.engine, "
             "vkvolume_tpu_torch.bench, vkvolume_tpu_torch.render.sweep_frame, "
+            "vkvolume_tpu_torch.bench.profile_frame, "
             "vkvolume_tpu_torch.interop, vkvolume_tpu_torch.cli, "
             "vkvolume_tpu_torch.io, vkvolume_tpu_torch.io.native, "
             "vkvolume_tpu_torch.utils.image; "

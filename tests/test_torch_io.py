@@ -103,7 +103,8 @@ def test_size_mismatch_raises(tmp_path):
 def test_from_file_matches_jax(tmp_path):
     raw = np.random.default_rng(2).integers(0, 65536, size=(7, 9, 13))
     tio.save_volume(tmp_path / "v.raw", raw, _header(tio))
-    t = tvolume.from_file(str(tmp_path / "v.raw"), block_size=2)
+    t = tvolume.from_file(str(tmp_path / "v.raw"), block_size=2,
+                          device="cpu")
     j = jvolume.from_file(str(tmp_path / "v.raw"), block_size=2)
     assert t.device == torch.device("cpu") and t.density.dtype == torch.uint8
     np.testing.assert_array_equal(t.density.numpy(), np.asarray(j.density))
@@ -114,7 +115,7 @@ def test_from_file_matches_jax(tmp_path):
 
 def test_set_spin_matches_jax():
     data = np.zeros((4, 5, 6), np.uint8)
-    t = tvolume.from_array(data)
+    t = tvolume.from_array(data, device="cpu")
     j = jvolume.from_array(data)
     for v in (t, j):
         v.set_scale((2.0, 3.0, 4.0))

@@ -102,6 +102,18 @@ def _setup(engine, azimuth):
                 grad_t=grad_t)
 
 
+def _port_tf(s):
+    return interop.tf_from_numpy({k: np.asarray(getattr(s["tf"], k))
+                                  for k in ("sampling_factor",
+                                            "voxel_alpha_factor",
+                                            "grad_magnitude_modifier",
+                                            "intensity_min",
+                                            "intensity_range_inv",
+                                            "gradient_min",
+                                            "gradient_range_inv",
+                                            "use_gradient")})
+
+
 def _compare(s, ert):
     plan = s["plan"]
     ref = jsb._sweep_bricks_jit(
@@ -111,15 +123,7 @@ def _compare(s, ert):
         n_slabs=s["n_slabs"], sgn=s["sgn"], tile_h=plan["tile_h"],
         span_blks=plan["span_blks"], rect_w=plan["rect_w"],
         interpret=True, dist_leap=True, tent_prec="highest")
-    tf = interop.tf_from_numpy({k: np.asarray(getattr(s["tf"], k))
-                                for k in ("sampling_factor",
-                                          "voxel_alpha_factor",
-                                          "grad_magnitude_modifier",
-                                          "intensity_min",
-                                          "intensity_range_inv",
-                                          "gradient_min",
-                                          "gradient_range_inv",
-                                          "use_gradient")})
+    tf = _port_tf(s)
     grad_t = s["grad_t"]
     out = tsb.sweep_bricks(
         interop.maps_from_numpy(np.asarray(s["vol_t"])),
@@ -183,3 +187,41 @@ def test_grid_fields_match(engine):
     for g, w in ((got[0], s_lo), (got[1], s_hi), (got[3], kappa)):
         np.testing.assert_allclose(g.numpy()[cov], w[cov], rtol=2e-6,
                                    atol=2e-6)
+
+
+@pytest.mark.parametrize("fixture", ["engine", "grad_engine"])
+def test_reads_mark_the_sectors_the_samples_need(request, fixture):
+    """The plain version's ``reads`` (the bytes side of K1's bound): the
+    same outputs; some but not all of the volume's sectors (ESS skips
+    empty space); ERT reads a subset of what the full sweep reads; the
+    gradient map only where the volume was read."""
+    s = _setup(request.getfixturevalue(fixture), 30.0)
+    grad_t = s["grad_t"]
+    tf = _port_tf(s)
+    marked = {}
+    for ert in (True, False):
+        inp = tsb.brick_inputs(
+            interop.maps_from_numpy(np.asarray(s["vol_t"])),
+            interop.maps_from_numpy(np.asarray(s["occ_t"])), tf,
+            interop.uniforms_from_numpy(vars(s["u"])),
+            tuple(torch.tensor(a) for a in s["grid"]), p_axis=s["p"],
+            ert=ert, count_samples=True, n_slabs=s["n_slabs"], sgn=s["sgn"],
+            tile_h=s["plan"]["tile_h"], dist_leap=True,
+            grad_t=(None if grad_t is None
+                    else interop.maps_from_numpy(np.asarray(grad_t))))
+        reads = {"vol": tsb.sector_map(inp.vol),
+                 "grad": None if inp.grad is None else tsb.sector_map(inp.grad)}
+        got = tsb.sweep_bricks_reference(inp, reads)
+        for a, b in zip(got, tsb.sweep_bricks_reference(inp)):
+            assert torch.equal(a, b)
+        assert int(got[3].sum()) > 0
+        vol = reads["vol"]
+        assert vol.numel() == -(-inp.vol.numel() // 32)
+        assert 0 < int(vol.sum()) < vol.numel()
+        if grad_t is not None:
+            g = reads["grad"]
+            assert int(g.sum()) > 0 and not bool((g & ~vol).any())
+        marked[ert] = reads
+    for k, m in marked[True].items():
+        if m is not None:
+            assert not bool((m & ~marked[False][k]).any())

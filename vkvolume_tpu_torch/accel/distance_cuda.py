@@ -1,8 +1,10 @@
-"""Chebyshev distance maps on the card — K3, K4 and K5 (csrc/distance.cu),
-the counterparts of ``vkvolume_tpu/accel/distance_pallas.py``'s
-``scan_and_relax_multi`` and ``relax_z_direct_multi`` (the octant maps),
-and ``scan_and_relax`` and ``relax_z_direct`` with ``relax_dirs=(0,)``
-(the isotropic map).
+"""Chebyshev distance maps on the card — K3, K4, K5 and K6
+(csrc/distance.cu), the counterparts of
+``vkvolume_tpu/accel/distance_pallas.py``'s ``scan_and_relax_multi`` and
+``relax_z_direct_multi`` (the octant maps), ``scan_and_relax`` and
+``relax_z_direct`` with ``relax_dirs=(0,)`` (the isotropic map), and
+``relax_pallas`` / ``relax_z`` (one relaxation along z or y, an accel
+entry point that no engine path calls).
 
 A CPU tensor runs the plain versions in ``distance.py``; a CUDA tensor
 launches the kernels (or raises). ``LAUNCHES`` counts kernel launches per
@@ -17,7 +19,7 @@ from ..utils import cuda_build
 from . import distance
 
 LAUNCHES = {"scan_and_relax_multi": 0, "relax_z_direct_multi": 0,
-            "scan_and_relax": 0, "relax_z_direct": 0}
+            "scan_and_relax": 0, "relax_z_direct": 0, "relax": 0}
 
 
 def _require_zyx(name: str, t: torch.Tensor) -> None:
@@ -39,8 +41,8 @@ def scan_and_relax(occ_u8: torch.Tensor) -> torch.Tensor:
     s = cuda_build.stream()
     cuda_build.check(lib.vkv_x_scan2(occ_u8.data_ptr(), xs.data_ptr(),
                                      Z, Y, X, s), "x_scan2")
-    cuda_build.check(lib.vkv_y_relax2(xs.data_ptr(), out.data_ptr(),
-                                      Z, Y, X, s), "y_relax2")
+    cuda_build.check(lib.vkv_relax(xs.data_ptr(), out.data_ptr(), Z, Y, X,
+                                   1, 0, s), "relax (y)")
     LAUNCHES["scan_and_relax"] += 1
     return out
 
@@ -54,10 +56,29 @@ def relax_z_direct(d_u8: torch.Tensor) -> torch.Tensor:
     lib = cuda_build.load_kernels()
     Z, Y, X = d_u8.shape
     out = torch.empty((1, Z, Y, X), dtype=torch.uint8, device=d_u8.device)
-    cuda_build.check(lib.vkv_z_relax2(d_u8.data_ptr(), out.data_ptr(),
-                                      Z, Y, X, cuda_build.stream()),
-                     "z_relax2")
+    cuda_build.check(lib.vkv_relax(d_u8.data_ptr(), out.data_ptr(), Z, Y, X,
+                                   0, 0, cuda_build.stream()), "relax (z)")
     LAUNCHES["relax_z_direct"] += 1
+    return out
+
+
+def relax(D: torch.Tensor, axis: int, direction: int = 0) -> torch.Tensor:
+    """K6: the uncapped zig-zag relaxation of a (Z, Y, X) u8 map along
+    ``axis`` 0 (z) or 1 (y), two-sided (``direction`` 0) or one-sided
+    (+1 / -1), as (Z, Y, X) u8 — the drop-in of ``relax_pallas``."""
+    if axis not in (0, 1) or direction not in (-1, 0, 1):
+        raise ValueError(f"relax: axis {axis} / direction {direction} "
+                         "(axis 0 or 1, direction -1, 0 or +1)")
+    if D.device.type == "cpu":
+        return distance.relax(D, axis, direction).to(torch.uint8)
+    _require_zyx("D", D)
+    lib = cuda_build.load_kernels()
+    Z, Y, X = D.shape
+    out = torch.empty_like(D)
+    cuda_build.check(lib.vkv_relax(D.data_ptr(), out.data_ptr(), Z, Y, X,
+                                   axis, direction, cuda_build.stream()),
+                     "relax")
+    LAUNCHES["relax"] += 1
     return out
 
 

@@ -37,12 +37,15 @@ def make_engine(
     benchmark_mode: bool = True,
     test: Test | None = None,
     ert: bool | None = None,
-    device: str = "cpu",
+    device: str = "cuda",
 ):
     """Engine + loaded synthetic volume for one benchmark configuration,
-    on ``device``. Returns (engine, add_volume stats, volume array,
-    synthesis seconds)."""
+    on ``device`` (by default the CUDA card; raises without one). Returns
+    (engine, add_volume stats, volume array, synthesis seconds)."""
     ds = DATASETS[dataset_key]
+    eng = Engine(RenderOptions(skipping_type=SkippingType(skipmode)),
+                 benchmark_mode=benchmark_mode, renderer=renderer,
+                 device=device)
     t_load = time.perf_counter()
     if volume_u8 is None:
         volume_u8 = synthesize(ds, seed=seed, scale=scale)
@@ -52,9 +55,6 @@ def make_engine(
         intensity_min=ds.imin, intensity_max=ds.imax,
         gradient_min=ds.gmin, gradient_max=ds.gmax,
     )
-    eng = Engine(RenderOptions(skipping_type=SkippingType(skipmode)),
-                 benchmark_mode=benchmark_mode, renderer=renderer,
-                 device=device)
     if test is not None:
         eng.options.test = test
     if ert is not None:

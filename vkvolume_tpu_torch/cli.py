@@ -31,7 +31,6 @@ import sys
 import time
 
 import numpy as np
-import torch
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -94,8 +93,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--output", default=None, help="write a PNG snapshot")
     p.add_argument("--renderer", default="pallas",
                    choices=["marcher", "sweep", "pallas"],
-                   help="pallas = the brick sweep and two-pass warp through "
-                        "the CUDA kernels; marcher and sweep are not ported")
+                   help="pallas = the w-grid frame through the CUDA kernels "
+                        "(brick or per-slab sweep; two-pass, single-pass "
+                        "or gather warp, as the view's plan says); marcher "
+                        "and sweep are not ported")
     p.add_argument("--debug-nans", action="store_true",
                    help="accepted and ignored: a JAX NaN trap with no "
                         "counterpart in PyTorch's eager execution")
@@ -133,13 +134,11 @@ def setup_engine(args):
     gets its own options instance (the reference's per-volume options,
     src/volume_render.cpp:190-195)."""
     from .engine import Engine, RenderOptions, from_array, from_file
+    from .engine.volume import resolve_device
     from .options import SkippingType, Test, VolumeOptions
 
     _refuse_unported(args)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda: no CUDA device is available "
-                           "(--device cpu runs the plain PyTorch versions)")
+    device = resolve_device(args.device)
     opts = VolumeOptions(
         sampling_factor=args.sampling,
         voxel_alpha_factor=args.alpha,

@@ -9,10 +9,16 @@
 //   K4  vkvolume_tpu/accel/distance_pallas.py:_relax_multi_kernel
 //       z relaxation (+ and -) of those four maps: the eight octant maps;
 //       and its two-sided form, relax_dirs=(0,), on the one isotropic map
-//       (z_relax2_kernel).
+//       (relax_kernel along z, two-sided).
 //   K5  vkvolume_tpu/accel/distance_pallas.py:_scan_relax_kernel with
 //       scan_dir=0, relax_dirs=(0,): the two-sided x-line scan, then the
-//       two-sided y relaxation (x_scan2_kernel, y_relax2_kernel).
+//       two-sided y relaxation (x_scan2_kernel, then relax_kernel along y).
+//   K6  vkvolume_tpu/accel/distance_pallas.py:_relax_kernel (via relax_z
+//       and relax_pallas): one uncapped relaxation of one map along z or
+//       y, two-sided or one-sided (relax_kernel). The TPU kernel relaxes z
+//       through a (Y, Z, X) transpose so that lines lie on sublanes; here
+//       the axis is a stride. The two-sided K4 and K5's y pass launch the
+//       same kernel.
 //
 // What bounds it on the H100: neither bytes nor flops. The maps are small
 // (beetle, block 4: 124 x 208 x 208 u8 = 5.4 MB each; at most 16 maps read
@@ -144,20 +150,16 @@ __device__ __forceinline__ int relax_cell2(const uint8_t* __restrict__ d,
   return a;
 }
 
-__global__ void y_relax2_kernel(const uint8_t* __restrict__ in,
-                                uint8_t* __restrict__ out, long long n_cells,
-                                int Y, int X) {
+// K6: A[l] = min_n max(n, D[l + dir*n]) along an axis of length L at
+// element stride `stride` (dir = 0: both senses).
+__global__ void relax_kernel(const uint8_t* __restrict__ in,
+                             uint8_t* __restrict__ out, long long n_cells,
+                             int L, long long stride, int dir) {
   long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (i >= n_cells) return;
-  out[i] = (uint8_t)relax_cell2(in, i, (int)((i / X) % Y), Y, X);
-}
-
-__global__ void z_relax2_kernel(const uint8_t* __restrict__ in,
-                                uint8_t* __restrict__ out, long long n_cells,
-                                int Z, long long plane) {
-  long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (i >= n_cells) return;
-  out[i] = (uint8_t)relax_cell2(in, i, (int)(i / plane), Z, plane);
+  const int l = (int)((i / stride) % L);
+  out[i] = (uint8_t)(dir == 0 ? relax_cell2(in, i, l, L, stride)
+                              : relax_cell(in, i, l, L, stride, dir));
 }
 
 unsigned blocks_for(long long n) {
@@ -172,24 +174,6 @@ extern "C" int vkv_x_scan2(const void* occ, void* xs, int Z, int Y, int X,
   if (n == 0) return 0;
   x_scan2_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)occ, (uint8_t*)xs, n, X);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int vkv_y_relax2(const void* in, void* out, int Z, int Y, int X,
-                            void* stream) {
-  const long long n = (long long)Z * Y * X;
-  if (n == 0) return 0;
-  y_relax2_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)in, (uint8_t*)out, n, Y, X);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int vkv_z_relax2(const void* in, void* out, int Z, int Y, int X,
-                            void* stream) {
-  const long long n = (long long)Z * Y * X;
-  if (n == 0) return 0;
-  z_relax2_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)in, (uint8_t*)out, n, Z, (long long)Y * X);
   return (int)cudaGetLastError();
 }
 
@@ -218,5 +202,19 @@ extern "C" int vkv_z_relax8(const void* in4, void* out8, int Z, int Y, int X,
   if (n == 0) return 0;
   z_relax8_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)in4, (uint8_t*)out8, n, Z, (long long)Y * X);
+  return (int)cudaGetLastError();
+}
+
+// axis 0 (z) or 1 (y); dir 0 (two-sided), +1 or -1.
+extern "C" int vkv_relax(const void* in, void* out, int Z, int Y, int X,
+                         int axis, int dir, void* stream) {
+  const long long n = (long long)Z * Y * X;
+  if (n == 0) return 0;
+  if ((axis != 0 && axis != 1) || dir < -1 || dir > 1)
+    return (int)cudaErrorInvalidValue;
+  const int L = axis == 0 ? Z : Y;
+  const long long stride = axis == 0 ? (long long)Y * X : (long long)X;
+  relax_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)in, (uint8_t*)out, n, L, stride, dir);
   return (int)cudaGetLastError();
 }

@@ -3,17 +3,20 @@
 
 Owns the volumes and their acceleration maps, rebuilds the occupancy and
 distance maps on every transfer-function edit (src/volume_render.cpp:392-445)
-and renders frames through the brick sweep and the two-pass warp. All work
-runs on the engine's ``device``; the kernels run on "cuda", their plain
-PyTorch versions on "cpu".
+and renders frames through the w-grid frame (``render/sweep_frame.py``):
+the brick sweep (K1) or the per-slab sweep (K7), then the two-pass warp
+(K2), the single-pass warp (K8) or the gather warp, as the view's plan
+says. All work runs on the engine's ``device``, by default the CUDA card
+(no card: it raises); the kernels run on "cuda", their plain PyTorch
+versions on "cpu".
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP item):
-the per-ray marcher and the XLA-sweep fallbacks (mixed-sign views, plans
-without a brick sweep or a two-pass warp), the ray entry / exit Test
-diagnostics, texture TFs, depth attachments, edge repair, the scene pass
-and the accel cache. The TPU workarounds (compile retries, watchdog
-banding, prewarm, frozen plan tiers, A/B environment knobs) are left out
-by design.
+the per-ray marcher and the XLA sweep (mixed-sign views, views with no
+w-grid plan, and wide-rect views whose narrow re-plan fails), the ray
+entry / exit Test diagnostics, texture TFs, depth attachments, edge
+repair, the scene pass and the accel cache. The TPU workarounds (compile
+retries and their re-plan chain, watchdog banding, prewarm, frozen plan
+tiers, A/B environment knobs) are left out by design.
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ from ..options import RenderOptions, SkippingType, Test
 from ..render import sweep_frame
 from ..render.ray_setup import RenderOutput, make_uniforms, transpose_for_axis
 from ..tf.transfer_function import tf_params
-from .volume import Volume
+from .volume import Volume, resolve_device
 
 
 def _octant_composite(maps: torch.Tensor, kz: float, ky: float,
@@ -91,9 +94,10 @@ class UpdateStats:
 class Engine:
     def __init__(self, options: RenderOptions | None = None,
                  benchmark_mode: bool = False, renderer: str = "pallas",
-                 device: str | torch.device = "cpu"):
-        """``renderer``: only "pallas" (the brick sweep + two-pass warp
-        path) is ported. ``device``: where volumes, maps and frames live."""
+                 device: str | torch.device = "cuda"):
+        """``renderer``: only "pallas" (the w-grid frame through the
+        kernels) is ported. ``device``: where volumes, maps and frames
+        live; "cuda" (the default) raises when there is no CUDA device."""
         if renderer != "pallas":
             raise NotImplementedError(
                 f"renderer {renderer!r} (marcher / XLA sweep): ROADMAP "
@@ -101,9 +105,7 @@ class Engine:
         self.options = options or RenderOptions()
         self.benchmark_mode = benchmark_mode
         self.renderer = renderer
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and self.device.index is None:
-            self.device = torch.device("cuda", torch.cuda.current_device())
+        self.device = resolve_device(device)
         if benchmark_mode:
             # Benchmark mode forces (src/volume_render.cpp:177-183).
             self.options.clip_distance = 1.0
@@ -246,8 +248,8 @@ class Engine:
 
     def _render_sweep(self, volume: Volume, camera, width: int,
                       height: int) -> RenderOutput | None:
-        """The brick sweep + two-pass warp frame, or None when the view
-        needs the marcher (mixed principal-axis signs, no coverage)."""
+        """The w-grid frame, or None when the view needs the marcher (mixed
+        principal-axis signs, no coverage)."""
         if self.options.test not in (Test.NONE, Test.NUM_TEXTURE_SAMPLES):
             raise NotImplementedError(
                 f"{self.options.test!r} frames: ROADMAP queue A, item 4")
@@ -363,35 +365,53 @@ class Engine:
                                 device=self.device)
             dist_leap = False
 
+        n_slabs = int(max(2, round(
+            vol_t.shape[0] * self._slab_oversample(volume, vol_t.shape, tf))))
+        if plan is not None and plan.get("rect_w", 256) > 256 \
+                and n_slabs < vol_t.shape[0]:
+            # Wide-rect plans exist only for the brick sweep, which needs a
+            # slab per voxel plane; fewer slabs (sampling_factor < 1) run
+            # the per-slab sweep on a 256-rect re-plan of the same view.
+            narrow = pose.get("plan_narrow")
+            if narrow is None:
+                narrow = sweep_frame.plan_from_stats(
+                    view, uniforms, p, vol_t.shape, height, width,
+                    max_rect=256)
+                pose["plan_narrow"] = narrow if narrow is not None else False
+            plan = narrow or None
         if plan is None:
             raise NotImplementedError(
                 "view outside the w-grid plan (XLA sweep fallback): ROADMAP "
                 "queue A, item 13")
-        if plan.get("warp_xla"):
-            raise NotImplementedError(
-                "plan without a two-pass warp (gather-warp fallback): "
-                "ROADMAP queue B, item 7")
-        n_slabs = int(max(2, round(
-            vol_t.shape[0] * self._slab_oversample(volume, vol_t.shape, tf))))
-        packed = pose.get("packed")
-        if packed is None:
+        gp = (plan["wu0"], plan["dwu"], plan.get("cu", 0.0),
+              plan["wv0"], plan["dwv"], plan.get("cv", 0.0))
+        # Keyed by the plan's grid: a TF or sampling edit can switch a
+        # cached pose between its plan and its narrow re-plan.
+        if pose.get("packed_gp") != gp:
             pvm = (camera.proj.astype(np.float64)
                    @ camera.view.astype(np.float64)
                    @ volume.model_matrix).astype(np.float32)
-            gp = (plan["wu0"], plan["dwu"], plan.get("cu", 0.0),
-                  plan["wv0"], plan["dwv"], plan.get("cv", 0.0))
-            packed = pose["packed"] = sweep_frame.pack_frame_scalars(
+            pose["packed"] = sweep_frame.pack_frame_scalars(
                 uniforms, pvm, list(gp), plan.get("hcoef"))
+            pose["packed_gp"] = gp
+        packed = pose["packed"]
         out = sweep_frame._frame_body(
             vol_t, occ_t, tf, packed, p_axis=p, Hi=plan["Hi"], Wi=plan["Wi"],
-            ert=self.options.early_ray_termination, n_slabs=n_slabs,
+            R_warp=plan["R_warp"], ert=self.options.early_ray_termination,
+            n_slabs=n_slabs,
             sgn_p=plan["sgn_p"], dist_leap=dist_leap, RECT_A=plan["RECT_A"],
             tile_h=plan.get("tile_h", 8), R_brick=plan.get("R_brick"),
             height=height, width=width,
-            warp_variant=plan.get("warp_variant", "A"), grad_t=grad_t,
+            warp_variant=plan.get("warp_variant", "A"),
+            rect_w=plan.get("rect_w", 256), grad_t=grad_t,
             test=self.options.test)
         self.last_renderer = "pallas"
         self.renderer_counts["pallas"] += 1
+        if plan.get("warp_xla"):
+            # The sweep ran on its kernel, the warp by gather: reported so
+            # that an orbit's counts show how many frames took that tier.
+            self.renderer_counts["pallas_xla_warp"] = (
+                self.renderer_counts.get("pallas_xla_warp", 0) + 1)
         return out
 
     def render_image(self, camera, width: int, height: int,

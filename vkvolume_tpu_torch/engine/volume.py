@@ -83,14 +83,31 @@ class Volume:
         self.node_transform = m.astype(np.float32)
 
 
+def resolve_device(device: str | torch.device) -> torch.device:
+    """``device`` as a torch.device, a CUDA one with its index; raises when
+    it names CUDA and no CUDA device is available (nothing falls back to
+    the CPU: pass device="cpu" for the plain PyTorch versions)."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device {str(device)!r}: no CUDA device is available "
+                "(device='cpu' runs the plain PyTorch versions)")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
 def from_file(path: str, options: VolumeOptions | None = None,
               block_size: int = 4, name: str | None = None,
-              device: str | torch.device = "cpu") -> Volume:
+              device: str | torch.device = "cuda") -> Volume:
     """Load and normalise a volume from ``<path>`` / ``<path>.header``
     onto ``device`` (``Volume::load_from_file``,
-    src/volume_component.cpp:55-153)."""
+    src/volume_component.cpp:55-153); the default, the CUDA card, raises
+    without one."""
     from ..io.loader import load_volume
 
+    device = resolve_device(device)
     data, header = load_volume(path)
     return Volume(
         name=name or str(path),
@@ -108,9 +125,11 @@ def from_array(
     block_size: int = 4,
     voxel_size=(1.0, 1.0, 1.0),
     name: str = "volume",
-    device: str | torch.device = "cpu",
+    device: str | torch.device = "cuda",
 ) -> Volume:
-    """Volume from a (D, H, W) uint8 array, copied to ``device``."""
+    """Volume from a (D, H, W) uint8 array, copied to ``device`` (by
+    default the CUDA card; raises without one)."""
+    device = resolve_device(device)
     d, h, w = data.shape
     physical = np.asarray(voxel_size, np.float32) * np.asarray([w, h, d], np.float32)
     return Volume(

@@ -10,8 +10,9 @@ cap) reduce to per-pixel interval arithmetic:
 so the host frame plan reads it with no device round trip. Also here: the
 principal-axis permutations of ``vkvolume_tpu/render/sweep.py`` and the
 ``RenderOutput`` record of ``render/marcher_xla.py`` (the XLA sweep and the
-marcher themselves are not ported yet). The depth-attachment ray clamp is
-not ported yet.
+marcher themselves are not ported yet), and ``ray_caster_get_back``, the
+frag-exact ray exit that ``render/frustum.py:rays_from_dirs`` computes for
+the per-slab sweep. The depth-attachment ray clamp is not ported yet.
 """
 
 from __future__ import annotations
@@ -114,14 +115,30 @@ def make_uniforms(
 
 @dataclasses.dataclass(frozen=True)
 class RaySetup:
-    """What the sweep frame reads of the JAX package's RaySetup. The ray
-    entry/exit points, ray length and entry clip depth serve the marcher
-    and are left out until it is ported (PyTorch, unlike XLA, would compute
-    them every frame for no reader)."""
+    """The JAX package's RaySetup. ``make_rays`` (the pixel rays of the
+    brick path) fills only the first three fields: PyTorch, unlike XLA,
+    would compute the others every frame for no reader. ``rays_from_dirs``
+    (the per-slab sweep's w-grid rays, which read entry and exit) fills
+    them all."""
 
     ray_dir: torch.Tensor        # (H, W, 3) normalized, texture space
     valid: torch.Tensor          # (H, W) bool — pixel covered by the draws
     depth_init: torch.Tensor     # (H, W) initial gl_FragDepth (reverse-Z)
+    entry: torch.Tensor | None = None          # (H, W, 3) texture coords
+    exit: torch.Tensor | None = None           # (H, W, 3)
+    ray_distance: torch.Tensor | None = None   # (H, W)
+    entry_clip_zw: torch.Tensor | None = None  # (H, W, 2) clip z, w at entry
+
+
+def ray_caster_get_back(front: torch.Tensor,
+                        direction: torch.Tensor) -> torch.Tensor:
+    """Exact port of ``ray_caster_get_back`` (volume_render.frag:71-83): the
+    ray's exit from the unit cube, recomputed from its entry point."""
+    dir_inv = 1.0 / direction
+    t_min = -front * dir_inv
+    t_max = (1.0 - front) * dir_inv
+    t_far = torch.maximum(t_min, t_max).amin(dim=-1, keepdim=True)
+    return t_far * direction + front
 
 
 def make_rays(u: FrameUniforms, height: int, width: int,

@@ -131,6 +131,86 @@ class BrickInputs:
     params: dict
 
 
+@dataclasses.dataclass(frozen=True)
+class CoarseMap:
+    """The coarse 2-D skip map both sweeps read (K1 and K7; as
+    ``_sweep_bricks_jit`` and ``_sweep_pallas_jit`` build it): the
+    (mp, mv, mu) map pooled by MIN into cells of at least 8 voxels along v
+    and at most 128 columns along u, so that one (16, 128) window covers a
+    tile's footprint. 0 = occupied; with ``dist_leap`` the values are
+    Chebyshev distances (multi-plane leaps), else clamped to {0, 1}."""
+    coarse: torch.Tensor       # (mp, CV, CU), the map's dtype
+    mp: int
+    CV: int
+    CU: int
+    CVp: int                   # rows padded: >= 16, a multiple of 8
+    bp_p: int                  # voxels per map cell along p, v, u
+    bp_v: int
+    bp_u: int
+    factor_v: int              # map cells per coarse cell along v, u
+    factor_u: int
+    Np: int
+    Sv: int
+    Su: int
+
+    @classmethod
+    def build(cls, occupancy_t: torch.Tensor, vol_shape, dist_leap: bool):
+        Np, Sv, Su = vol_shape
+        mp, mv, mu = occupancy_t.shape
+        bp_v = -(-Sv // mv)
+        bp_u = -(-Su // mu)
+        factor_v = max(1, -(-8 // bp_v))
+        factor_u = max(-(-mu // 128), max(1, -(-8 // bp_u)))
+        CV = -(-mv // factor_v)
+        CU = -(-mu // factor_u)
+        dmap = occupancy_t if dist_leap else torch.clamp(occupancy_t, max=1)
+        dmap_pad = torch.nn.functional.pad(
+            dmap, (0, CU * factor_u - mu, 0, CV * factor_v - mv), value=255)
+        coarse = dmap_pad.reshape(mp, CV, factor_v, CU, factor_u).amin(
+            dim=(2, 4))
+        return cls(coarse=coarse, mp=mp, CV=CV, CU=CU,
+                   CVp=max(16, -(-CV // 8) * 8), bp_p=-(-Np // mp),
+                   bp_v=bp_v, bp_u=bp_u, factor_v=factor_v,
+                   factor_u=factor_u, Np=Np, Sv=Sv, Su=Su)
+
+    def pair(self) -> torch.Tensor:
+        """The leap map: pre-min'd with the next plane (a slab between
+        voxel planes reads map planes m and m + 1)."""
+        c = self.coarse
+        return torch.minimum(c, torch.cat([c[1:], c[-1:]]))
+
+    def pad(self, a: torch.Tensor) -> torch.Tensor:
+        """(mp, CV, CU) → the kernels' (mp, CVp, 128) u8, padded with 255."""
+        return torch.nn.functional.pad(
+            a, (0, TILE_W - self.CU, 0, self.CVp - self.CV),
+            value=255).to(torch.uint8).contiguous()
+
+    def scalars(self) -> dict:
+        """The window and leap-rate launch scalars (float32 values)."""
+        return dict(
+            inv_cvox_v=_f32(1.0 / (self.factor_v * self.bp_v)),
+            inv_cvox_u=_f32(1.0 / (self.factor_u * self.bp_u)),
+            # map cells drifted per map plane at |w| = 1
+            drift_u=_f32(self.Su * self.bp_p / (self.Np * self.bp_u)),
+            drift_v=_f32(self.Sv * self.bp_p / (self.Np * self.bp_v)))
+
+
+def occupied_slabs(occupancy_t: torch.Tensor, Np: int, n_slabs: int,
+                   bp_p: int):
+    """(ks, ne): the slab indices and whether slab k's map planes hold an
+    occupied cell (slabs outside the occupied range are empty for every
+    tile)."""
+    mp = occupancy_t.shape[0]
+    ds = _f32(1.0 / n_slabs)
+    nonempty_m = (occupancy_t == 0).any(dim=2).any(dim=1)
+    ks = torch.arange(n_slabs, device=occupancy_t.device)
+    zps = (ks.to(torch.float32) + 0.5) * ds * Np - 0.5
+    k0s = torch.floor(zps).to(torch.int64).clamp(0, Np - 2)
+    ne = (nonempty_m[(k0s // bp_p).clamp(0, mp - 1)]
+          | nonempty_m[((k0s + 1) // bp_p).clamp(0, mp - 1)])
+    return ks, ne
+
+
 def planes_per_brick(Np: int, n_slabs: int) -> int:
     """Voxel planes one brick's slabs touch (the TPU kernel's rect depth):
     BRICK + 1 when aligned, else ceil((BRICK-1)·Np/n_slabs) + 2."""
@@ -165,32 +245,13 @@ def brick_inputs(vol_t: torch.Tensor, occupancy_t: torch.Tensor,
     v_ax, u_ax = _SLICE_AXES[p_axis]
     o = np.asarray(uniforms.cam_pos_tex, np.float32)
 
-    # Coarse 2D maps (as _sweep_bricks_jit): map cells pooled so that one
-    # (16, 128) window per brick covers the tile's footprint.
-    mp, mv, mu = occupancy_t.shape
-    bp_p = -(-Np // mp)
-    bp_v = -(-Sv // mv)
-    bp_u = -(-Su // mu)
-    factor_v = max(1, -(-8 // bp_v))
-    factor_u = max(-(-mu // 128), max(1, -(-8 // bp_u)))
-    CV = -(-mv // factor_v)
-    CU = -(-mu // factor_u)
-    dmap = occupancy_t if dist_leap else torch.clamp(occupancy_t, max=1)
-    dmap_pad = torch.nn.functional.pad(
-        dmap, (0, CU * factor_u - mu, 0, CV * factor_v - mv), value=255)
-    coarse = dmap_pad.reshape(mp, CV, factor_v, CU, factor_u).amin(dim=(2, 4))
-    # Leap map: pre-min'd with the next plane (slab k reads planes k, k+1).
-    coarse_pair = torch.minimum(coarse, torch.cat([coarse[1:], coarse[-1:]]))
-    CVp = max(16, -(-CV // 8) * 8)
-
-    def pad_map(a):
-        return torch.nn.functional.pad(a, (0, 128 - CU, 0, CVp - CV),
-                                       value=255).to(torch.uint8).contiguous()
+    cm = CoarseMap.build(occupancy_t, (Np, Sv, Su), dist_leap)
+    mp, CV, CU, CVp, bp_p = cm.mp, cm.CV, cm.CU, cm.CVp, cm.bp_p
 
     # Tight skip map: cskip[m] == 0 iff an occupied cell lies in map planes
     # [m, m + mp_span] (the plane span one brick covers).
     mp_span = -(-(PLANES - 1) // bp_p)
-    cbin = torch.clamp(coarse, max=1)
+    cbin = torch.clamp(cm.coarse, max=1)
     cskip = cbin
     for s in range(1, mp_span + 1):
         fill = torch.full((min(s, mp), CV, CU), 255, dtype=cbin.dtype,
@@ -200,12 +261,7 @@ def brick_inputs(vol_t: torch.Tensor, occupancy_t: torch.Tensor,
     # Globally occupied brick range.
     ds = _f32(1.0 / n_slabs)
     n_bricks = -(-n_slabs // BRICK)
-    nonempty_m = (occupancy_t == 0).any(dim=2).any(dim=1)
-    ks = torch.arange(n_slabs, device=dev)
-    zps = (ks.to(torch.float32) + 0.5) * ds * Np - 0.5
-    k0s = torch.floor(zps).to(torch.int64).clamp(0, Np - 2)
-    ne = (nonempty_m[(k0s // bp_p).clamp(0, mp - 1)]
-          | nonempty_m[((k0s + 1) // bp_p).clamp(0, mp - 1)])
+    ks, ne = occupied_slabs(occupancy_t, Np, n_slabs, bp_p)
     kb_i = ks // BRICK
     kb_occ = torch.stack([
         torch.where(ne, kb_i, n_bricks).amin(),
@@ -219,17 +275,13 @@ def brick_inputs(vol_t: torch.Tensor, occupancy_t: torch.Tensor,
         o_u=float(o[u_ax]), o_v=float(o[v_ax]), o_p=float(o[p_axis]), ds=ds,
         imin=tf.intensity_min, iinv=tf.intensity_range_inv,
         vaf=tf.voxel_alpha_factor,
-        inv_cvox_v=_f32(1.0 / (factor_v * bp_v)),
-        inv_cvox_u=_f32(1.0 / (factor_u * bp_u)),
-        drift_u=_f32(Su * bp_p / (Np * bp_u)),   # map cells per map plane
-        drift_v=_f32(Sv * bp_p / (Np * bp_v)),
-        gmin=tf.gradient_min, ginv=tf.gradient_range_inv)
+        gmin=tf.gradient_min, ginv=tf.gradient_range_inv, **cm.scalars())
     f = torch.float32
     return BrickInputs(
         wu=wu.to(f).contiguous(), wv=wv.to(f).contiguous(),
         s_lo=s_lo.to(f).contiguous(), s_hi=s_hi.to(f).contiguous(),
         kappa=kappa.to(f).contiguous(), cov=covered.contiguous(),
-        coarse=pad_map(coarse_pair), cskip=pad_map(cskip),
+        coarse=cm.pad(cm.pair()), cskip=cm.pad(cskip),
         vol=vol_t.contiguous(),
         grad=grad_t.contiguous() if use_gradient else None, kb_occ=kb_occ,
         params=params)
@@ -241,10 +293,32 @@ def _f2i(x: torch.Tensor) -> torch.Tensor:
     return x.clamp(-1e9, 1e9).to(torch.int64)
 
 
-def sweep_bricks_reference(inp: BrickInputs):
+def sector_map(t: torch.Tensor) -> torch.Tensor:
+    """One flag per 32-byte sector of ``t``'s storage (``reads`` below)."""
+    n = t.numel() * t.element_size()
+    return torch.zeros(-(-n // 32), dtype=torch.bool, device=t.device)
+
+
+def mark_reads(sectors: torch.Tensor, src: torch.Tensor, idxs, need,
+               plane: int) -> None:
+    """Flags the sectors of the texels at each of ``idxs`` (and one plane
+    on, where ``plane``) that a sample under mask ``need`` reads."""
+    for idx in idxs:
+        i = torch.broadcast_to(idx, need.shape)[need] * src.element_size()
+        sectors[i // 32] = True
+        if plane:
+            sectors[(i + plane * src.element_size()) // 32] = True
+
+
+def sweep_bricks_reference(inp: BrickInputs, reads: dict | None = None):
     """Plain PyTorch version of K1: (lum, alpha, firsts, nsamp), each
     (H, W). Runs every tile in lock-step, each with its own brick walk and
-    masks; the arithmetic is the kernel's, operation for operation."""
+    masks; the arithmetic is the kernel's, operation for operation.
+
+    ``reads`` (``{"vol": sector_map(inp.vol), "grad": ...}``), when given,
+    gets the sectors this run's samples need: the volume's taps of every
+    sample in range, the gradient map's of those whose intensity alpha is
+    above 0 (the kernel skips the others' gradient taps)."""
     p = inp.params
     H, W, th = p["H"], p["W"], p["tile_h"]
     Np, Sv, Su, n_slabs = p["Np"], p["Sv"], p["Su"], p["n_slabs"]
@@ -430,6 +504,14 @@ def sweep_bricks_reference(inp: BrickInputs):
 
             a_tf = torch.clamp((bilinear(vol) - p["imin"]) * p["iinv"],
                                0.0, 1.0)
+            if reads is not None:
+                idxs = [base + r[:, :, None] * Su + iu[:, None, :]
+                        for r in (r0, r1) for iu in (iu0, iu1)]
+                lerp = 0 if aligned else Sv * Su
+                mark_reads(reads["vol"], vol, idxs, in_rng, lerp)
+                if use_gradient:
+                    mark_reads(reads["grad"], grad, idxs,
+                               in_rng & (a_tf > 0.0), lerp)
             if use_gradient:
                 a_tf = a_tf * torch.clamp(
                     (bilinear(grad) - p["gmin"]) * p["ginv"], 0.0, 1.0)

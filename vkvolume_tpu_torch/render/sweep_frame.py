@@ -1,22 +1,28 @@
-"""The frame of the production path: host plan → w-grid brick sweep →
-two-pass warp to pixels — port of ``vkvolume_tpu/render/sweep_pallas.py``
-(whose per-slab Pallas kernel, K7, is not ported yet).
+"""The frame of the production path: host plan → w-grid sweep → warp to
+pixels — port of ``vkvolume_tpu/render/sweep_pallas.py``.
 
 * The host planners (``select_view_plan``, ``plan_from_stats``,
   ``_plan_cost``, ``_mobius_grid_params``) are the JAX package's, numpy
   only, so the port plans the same w-grid, tiles and warp rects cell for
-  cell. Left out: the frozen-envelope ``force`` tiers and the fallback
-  re-plans (they serve the TPU compile cache and the per-slab kernel) and
-  the environment A/B knobs (their defaults are kept).
+  cell. Left out: the frozen-envelope ``force`` tiers, the ``no_brick``
+  re-plan (both serve the TPU compile cache and its retry chain) and the
+  environment A/B knobs (their defaults are kept).
 * ``pack_frame_scalars`` / ``unpack_frame_scalars`` carry every per-pose
   float through one float32 array, as in the JAX package: the frame sees
   exactly the float32 values the JAX frame sees.
-* ``_frame_body`` and ``_pixel_stage`` run only the brick-kernel branch and
-  the two-pass-warp branch, with the closed-form intensity or gradient TF
-  and the ``Test.NUM_TEXTURE_SAMPLES`` diagnostic (the benchmark mode's
-  frame). A plan that needs the per-slab sweep (no ``R_brick``, or fewer
-  slabs than voxel planes) or the single-pass warp (no ``RECT_A``) raises
-  NotImplementedError.
+* ``_frame_body`` routes the sweep as the JAX frame does: the brick sweep
+  (K1, ``sweep_bricks.py``) when the plan sized a brick rect, every voxel
+  plane gets a slab and the grid tiles by ``tile_h``; otherwise the
+  per-slab sweep (K7, ``sweep_slabs.py``) over the w-grid's rays.
+* ``_pixel_stage`` warps the grid channels to pixels by the plan's warp:
+  the two-pass warp (K2 twice, ``warp_cuda.py``) when the plan has
+  ``RECT_A``, else the single-pass warp (K8) when it has ``R_warp``, else
+  (a ``warp_xla`` plan) the gather warp in plain PyTorch, as the JAX
+  package leaves it to XLA on every device.
+
+The closed-form intensity or gradient TF and the
+``Test.NUM_TEXTURE_SAMPLES`` diagnostic (the benchmark mode's frame) run
+through every route.
 """
 
 from __future__ import annotations
@@ -28,7 +34,8 @@ import torch
 
 from ..options import Test
 from . import plan as plan_mod
-from . import sweep_bricks, warp_cuda
+from . import sweep_bricks, sweep_slabs, warp_cuda
+from .frustum import rays_from_dirs
 from .ray_setup import (_SLICE_AXES, FrameUniforms, RaySetup, RenderOutput,
                         make_rays)
 
@@ -113,11 +120,14 @@ def _mobius_grid_params(rng: float, f_lo: float, f_hi: float, N: float):
 
 def plan_from_stats(st, uniforms: FrameUniforms, p_axis: int, vol_shape_t,
                     height: int, width: int, max_oversample: float = 2.5,
-                    mobius: bool = True, size_only: bool = False):
+                    mobius: bool = True, size_only: bool = False,
+                    max_rect: int = 512):
     """Grid sizing + static kernel parameters from the view statistics
     (``vkvolume_tpu/render/sweep_pallas.py:plan_from_stats`` without the
     frozen-envelope ``force`` tiers). Searches over a grid-coarsening
-    factor; returns None when no factor satisfies the kernel limits."""
+    factor; returns None when no factor satisfies the kernel limits.
+    ``max_rect`` caps the brick rect's width: 256 re-plans a view whose
+    plan took a wider rect for the per-slab sweep, which has none."""
     Np, Sv, Su = vol_shape_t
     if not st["any_sel"]:
         return None
@@ -286,7 +296,7 @@ def plan_from_stats(st, uniforms: FrameUniforms, p_axis: int, vol_shape_t,
     # inflated well past the pixel-matched quality size.
     if Su >= 384 and f_hi_u * 1.05 > cap_fp_u:
         for rect_c in (384, 512):
-            if Su < rect_c:
+            if Su < rect_c or rect_c > max_rect:
                 continue
             bw_c, cap_c = u_caps(rect_c)
             if not bw_c:
@@ -386,6 +396,20 @@ def w_grid(gp, Hi: int, Wi: int, device) -> tuple[torch.Tensor, torch.Tensor]:
     return wu_g, wv_g
 
 
+def grid_rays(uniforms: FrameUniforms, wu_g: torch.Tensor,
+              wv_g: torch.Tensor, p_axis: int, sgn_p: float) -> RaySetup:
+    """The per-slab sweep's rays: one per w-grid cell, from the camera along
+    ``(w_u, w_v, 1)·sgn_p`` in (u, v, p) texture axes, normalised."""
+    v_ax, u_ax = _SLICE_AXES[p_axis]
+    dir_xyz = [None, None, None]
+    dir_xyz[p_axis] = torch.full(wu_g.shape, float(sgn_p), device=wu_g.device)
+    dir_xyz[u_ax] = wu_g * float(sgn_p)
+    dir_xyz[v_ax] = wv_g * float(sgn_p)
+    dirs = torch.stack(dir_xyz, -1)
+    dirs = dirs / torch.linalg.vector_norm(dirs, dim=-1, keepdim=True)
+    return rays_from_dirs(uniforms, dirs)
+
+
 def pixel_grid_coords(rays: RaySetup, gp, p_axis: int):
     """(gx, gy): each pixel's position in the w-grid image, -10 where the
     pixel's ray misses."""
@@ -443,42 +467,43 @@ def warp_positions(gx: torch.Tensor, gy: torch.Tensor, gp, hcoef, *,
 
 
 def _pixel_stage(chans: torch.Tensor, rays: RaySetup, gp, hcoef, tf, *,
-                 p_axis: int, Hi: int, RECT_A, warp_variant: str,
+                 p_axis: int, Hi: int, RECT_A, R_warp, warp_variant: str,
                  iterations: int, test: Test = Test.NONE,
                  dim_max: int) -> RenderOutput:
-    """Two-pass warp of the (C, Hi, Wi) grid channels (lum, alpha, depth,
-    and the sample count under ``Test.NUM_TEXTURE_SAMPLES``) to pixels,
-    then the pixel-space outputs."""
-    if RECT_A is None:
-        raise NotImplementedError(
-            "single-pass warp (warp_pallas._kernel, K8): ROADMAP queue B, "
-            "item 7")
+    """Warp of the (C, Hi, Wi) grid channels (lum, alpha, depth, and the
+    sample count under ``Test.NUM_TEXTURE_SAMPLES``) to pixels by the
+    plan's warp — two-pass (``RECT_A``), single-pass K8 (``R_warp``) or the
+    gather warp (neither: a ``warp_xla`` plan) — then the pixel-space
+    outputs."""
     H, W = rays.valid.shape
     gx, gy = pixel_grid_coords(rays, gp, p_axis)
-    pos1, pos2 = warp_positions(gx, gy, gp, hcoef, Hi=Hi, Wi=chans.shape[2],
-                                warp_variant=warp_variant)
-    # u16-encoded warp: lum/alpha/depth live in [0, 1] (depth is reverse-Z
-    # clip depth; no-hit pixels are overwritten below); the sample count is
-    # an integer far below 65535 (at most n_slabs), warped at scale 1.
-    num_test = test == Test.NUM_TEXTURE_SAMPLES
-    scales = ([65535.0] * 3 + [1.0])[:chans.shape[0]]
-    warp = (warp_cuda.warp_two_pass_b if warp_variant == "B"
-            else warp_cuda.warp_two_pass)
-    warped = warp(chans, pos1, pos2, scales=scales)[:, :H, :]
+    if RECT_A is not None:
+        pos1, pos2 = warp_positions(gx, gy, gp, hcoef, Hi=Hi,
+                                    Wi=chans.shape[2],
+                                    warp_variant=warp_variant)
+        # u16-encoded warp: lum/alpha/depth live in [0, 1] (depth is
+        # reverse-Z clip depth; no-hit pixels are overwritten below); the
+        # sample count is an integer far below 65535 (at most n_slabs),
+        # warped at scale 1.
+        scales = ([65535.0] * 3 + [1.0])[:chans.shape[0]]
+        warp = (warp_cuda.warp_two_pass_b if warp_variant == "B"
+                else warp_cuda.warp_two_pass)
+        warped = warp(chans, pos1, pos2, scales=scales)[:, :H, :]
+    elif R_warp is not None:
+        warped = warp_cuda.warp_to_pixels(chans, gx.contiguous(),
+                                          gy.contiguous())
+    else:
+        warped = warp_cuda.warp_to_pixels_plain(chans, gx, gy)
     lum, alpha, depth = warped[0], warped[1], warped[2]
     covered = gx > -5.0
     depth = torch.where(covered & (alpha > 0.0), depth, rays.depth_init)
     color = torch.stack([lum, lum, lum, alpha], -1)
     zi = torch.zeros((H, W), dtype=torch.int32, device=chans.device)
     nsamp = zi
-    if num_test:
-        # Sample count over the reference's per-ray step budget
-        # floor(ceil(dim_max·√3)·sf) (sweep_pallas.py:1790-1800).
-        f32 = np.float32
-        n_steps_max = float(np.floor(np.ceil(f32(dim_max) * np.sqrt(f32(3.0)))
-                                     * f32(tf.sampling_factor)))
+    if test == Test.NUM_TEXTURE_SAMPLES:
         nsamp = warped[3].to(torch.int32)
-        val = warped[3] / n_steps_max
+        val = warped[3] / sweep_slabs.n_steps_max(dim_max,
+                                                  tf.sampling_factor)
         color = torch.stack([val, val, val, torch.ones_like(val)], -1)
         color = torch.where(covered[..., None], color, 0.0)
     return RenderOutput(color=color, depth=depth, num_volume_samples=nsamp,
@@ -488,36 +513,49 @@ def _pixel_stage(chans: torch.Tensor, rays: RaySetup, gp, hcoef, tf, *,
 
 def _frame_body(vol_t: torch.Tensor, occupancy_t: torch.Tensor, tf,
                 packed: np.ndarray, *, p_axis: int, Hi: int, Wi: int,
-                ert: bool, n_slabs: int, sgn_p: float, dist_leap: bool,
-                RECT_A, tile_h: int, R_brick, height: int, width: int,
-                warp_variant: str = "A", grad_t: torch.Tensor | None = None,
+                R_warp, ert: bool, n_slabs: int, sgn_p: float,
+                dist_leap: bool, RECT_A, tile_h: int, R_brick, height: int,
+                width: int, warp_variant: str = "A", rect_w: int = 256,
+                grad_t: torch.Tensor | None = None,
                 test: Test = Test.NONE) -> RenderOutput:
-    """One frame: pixel rays → w-grid fields → brick sweep (K1) → channel
-    stack → two-pass warp (K2 twice) → pixel outputs. ``packed`` is
-    pack_frame_scalars' array; ``grad_t`` the gradient map transposed like
-    ``vol_t`` (gradient TFs)."""
-    if R_brick is None or n_slabs < vol_t.shape[0] or Hi % tile_h:
-        raise NotImplementedError(
-            "per-slab sweep kernel (sweep_pallas._kernel, K7): ROADMAP "
-            "queue B, item 6")
+    """One frame: pixel rays → w-grid fields → sweep (K1, or K7) → channel
+    stack → warp (K2 twice, K8, or the gather warp) → pixel outputs.
+    ``packed`` is pack_frame_scalars' array; ``grad_t`` the gradient map
+    transposed like ``vol_t`` (gradient TFs)."""
     uniforms, pvm, gp, hcoef = unpack_frame_scalars(packed)
     dev = vol_t.device
     rays = make_rays(uniforms, height, width, dev)
     wu_g, wv_g = w_grid(gp, Hi, Wi, dev)
     sgn = 1 if sgn_p > 0 else -1
-    s_lo, s_hi, cov, kappa = sweep_bricks.grid_fields(
-        uniforms, wu_g, wv_g, sgn, p_axis, max(vol_t.shape), n_slabs)
     num_test = test == Test.NUM_TEXTURE_SAMPLES
-    grid_out = sweep_bricks.sweep_bricks(
-        vol_t, occupancy_t, tf, uniforms, pvm,
-        (wu_g, wv_g, s_lo, s_hi, kappa, cov), p_axis=p_axis, ert=ert,
-        count_samples=num_test, n_slabs=n_slabs, sgn=sgn, tile_h=tile_h,
-        dist_leap=dist_leap, grad_t=grad_t)
+    # The brick sweep whenever the plan proved its rect feasible and every
+    # voxel plane gets a slab (the plan's drift margins assume it);
+    # otherwise the per-slab sweep.
+    if R_brick is not None and n_slabs >= vol_t.shape[0] \
+            and Hi % tile_h == 0:
+        s_lo, s_hi, cov, kappa = sweep_bricks.grid_fields(
+            uniforms, wu_g, wv_g, sgn, p_axis, max(vol_t.shape), n_slabs)
+        grid_out = sweep_bricks.sweep_bricks(
+            vol_t, occupancy_t, tf, uniforms, pvm,
+            (wu_g, wv_g, s_lo, s_hi, kappa, cov), p_axis=p_axis, ert=ert,
+            count_samples=num_test, n_slabs=n_slabs, sgn=sgn, tile_h=tile_h,
+            dist_leap=dist_leap, grad_t=grad_t)
+    else:
+        if rect_w > 256:
+            # The grid was sized for a wide brick rect; the per-slab
+            # sweep's footprint limits assume 256 lanes.
+            raise ValueError("a wide-rect plan needs the brick sweep")
+        grid_out = sweep_slabs.sweep_slabs(
+            vol_t, occupancy_t, tf,
+            grid_rays(uniforms, wu_g, wv_g, p_axis, sgn_p), uniforms, pvm,
+            grad_t, p_axis=p_axis, ert=ert, test=test,
+            count_samples=num_test, n_slabs=n_slabs, separable=True,
+            dist_leap=dist_leap)
     chans = [grid_out.color[..., 0], grid_out.color[..., 3], grid_out.depth]
     if num_test:
         chans.append(grid_out.num_volume_samples.to(torch.float32))
     return _pixel_stage(torch.stack(chans), rays, gp, hcoef, tf,
-                        p_axis=p_axis, Hi=Hi, RECT_A=RECT_A,
+                        p_axis=p_axis, Hi=Hi, RECT_A=RECT_A, R_warp=R_warp,
                         warp_variant=warp_variant,
                         iterations=grid_out.iterations, test=test,
                         dim_max=max(vol_t.shape))

@@ -1,12 +1,19 @@
-"""Two-pass projective warp of the w-grid image to pixels — port of the
-two-pass half of ``vkvolume_tpu/render/warp_pallas.py``.
+"""Warps of the w-grid image to pixels — port of
+``vkvolume_tpu/render/warp_pallas.py``.
 
-The pixel→grid map is an exact homography, so the bilinear resample
-factors into two row-aligned 1-D rational resamples with a transpose
-between them (Catmull & Smith 1980): each pass is ``resample_rows``, which
-launches K2 (csrc/resample_rows.cu) for CUDA tensors and runs
-``resample_rows_reference`` for CPU tensors. The transposes and the u16
-encode/decode are plain PyTorch, as XLA did them.
+* The two-pass projective warp: the pixel→grid map is an exact
+  homography, so the bilinear resample factors into two row-aligned 1-D
+  rational resamples with a transpose between them (Catmull & Smith
+  1980). Each pass is ``resample_rows``, which launches K2
+  (csrc/resample_rows.cu) for CUDA tensors and runs
+  ``resample_rows_reference`` for CPU tensors. The transposes and the u16
+  encode/decode are plain PyTorch, as XLA did them.
+* The single-pass warp: ``warp_to_pixels`` launches K8
+  (csrc/warp_pixels.cu) for CUDA tensors and runs ``warp_to_pixels_plain``
+  for CPU tensors. The plain version is the port of
+  ``sweep_pallas._warp_reference``, the gather warp that the JAX frame
+  computes on a CPU and on any device for a ``warp_xla`` plan; the frame
+  calls it directly for such plans.
 """
 
 from __future__ import annotations
@@ -15,7 +22,7 @@ import torch
 
 from ..utils import cuda_build
 
-LAUNCHES = {"resample_rows": 0}
+LAUNCHES = {"resample_rows": 0, "warp_to_pixels": 0}
 
 
 def resample_rows_reference(src_chw: torch.Tensor, pos: torch.Tensor,
@@ -95,3 +102,52 @@ def warp_two_pass_b(chans: torch.Tensor, yb: torch.Tensor, gx_p: torch.Tensor,
     src = _encode(chans.transpose(1, 2), sc).contiguous()      # (C, Wi, Hi)
     t = resample_rows(src, yb, encode_out=True)                # (C, Wi, Hp)
     return resample_rows(t.transpose(1, 2).contiguous(), gx_p) / sc
+
+
+def warp_to_pixels_plain(chans: torch.Tensor, gx: torch.Tensor,
+                         gy: torch.Tensor) -> torch.Tensor:
+    """Plain version of K8 (``sweep_pallas._warp_reference``): the
+    (C, Hi, Wi) float32 channels sampled bilinearly at (gx, gy) (H, W),
+    positions clipped to the grid; 0 where gx < -5. (C, H, W) float32."""
+    C, Hi, Wi = chans.shape
+    gxc = torch.clamp(gx, 0.0, Wi - 1.0)
+    gyc = torch.clamp(gy, 0.0, Hi - 1.0)
+    flx, fly = torch.floor(gxc), torch.floor(gyc)
+    x0 = flx.to(torch.int64).clamp(0, Wi - 1)
+    y0 = fly.to(torch.int64).clamp(0, Hi - 1)
+    x1 = (x0 + 1).clamp(max=Wi - 1)
+    y1 = (y0 + 1).clamp(max=Hi - 1)
+    fx = torch.clamp(gxc - flx, 0.0, 1.0)
+    fy = gyc - fly
+    flat = chans.reshape(C, -1)
+
+    def tap(y, x):
+        return flat[:, (y * Wi + x).reshape(-1)].reshape((C,) + gx.shape)
+
+    c00, c01 = tap(y0, x0), tap(y0, x1)
+    c10, c11 = tap(y1, x0), tap(y1, x1)
+    v0 = c00 + (c01 - c00) * fx
+    v1 = c10 + (c11 - c10) * fx
+    return torch.where((gx > -5.0)[None], v0 + (v1 - v0) * fy, 0.0)
+
+
+def warp_to_pixels(chans: torch.Tensor, gx: torch.Tensor,
+                   gy: torch.Tensor) -> torch.Tensor:
+    """K8: the single-pass warp of the (C, Hi, Wi) float32 grid channels to
+    the (H, W) pixels at grid positions (gx, gy); (C, H, W) float32."""
+    if gx.shape != gy.shape:
+        raise ValueError(f"gx {tuple(gx.shape)} != gy {tuple(gy.shape)}")
+    if chans.device.type == "cpu":
+        return warp_to_pixels_plain(chans, gx, gy)
+    C, Hi, Wi = chans.shape
+    cuda_build.require_cuda("chans", chans, torch.float32)
+    cuda_build.require_cuda("gx", gx, torch.float32)
+    cuda_build.require_cuda("gy", gy, torch.float32)
+    lib = cuda_build.load_kernels()
+    out = torch.empty((C,) + tuple(gx.shape), dtype=torch.float32,
+                      device=chans.device)
+    cuda_build.check(lib.vkv_warp_pixels(
+        chans.data_ptr(), gx.data_ptr(), gy.data_ptr(), out.data_ptr(), C, Hi,
+        Wi, gx.numel(), cuda_build.stream()), "warp_to_pixels")
+    LAUNCHES["warp_to_pixels"] += 1
+    return out

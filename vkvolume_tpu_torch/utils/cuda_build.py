@@ -1,11 +1,11 @@
 """Build and bind the package's CUDA kernels (``vkvolume_tpu_torch/csrc``).
 
 Every ``csrc/*.cu`` file exposes plain ``extern "C"`` launchers and
-includes no PyTorch headers, so each compiles in seconds: one nvcc process
-per source, all started together, then one link into a shared library,
-which ctypes loads. The library lands in ``build/`` beside the package,
-named by a hash of the sources and flags, so an edited source is rebuilt
-and an unchanged one is reused. The build runs at the first CUDA
+includes no PyTorch headers (only ``csrc/*.cuh``), so each compiles in
+seconds: one nvcc process per source, all started together, then one link
+into a shared library, which ctypes loads. The library lands in ``build/``
+beside the package, named by a hash of the sources, headers and flags, so
+an edited source is rebuilt and an unchanged one is reused. The build runs at the first CUDA
 kernel call, never at import: machines without nvcc import and test the
 package through the plain PyTorch versions.
 
@@ -65,6 +65,17 @@ class BrickParams(ctypes.Structure):
             "inv_cvox_u", "drift_u", "drift_v", "gmin", "ginv")]
 
 
+class SlabParams(ctypes.Structure):
+    """Mirror of ``SlabParams`` in csrc/sweep_slabs.cu (field order and
+    types must match)."""
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "Np", "Sv", "Su", "H", "W", "bp_p", "CV", "CU", "CVp", "mp",
+        "n_slabs", "ert", "count_samples", "use_gradient", "separable")] + [
+        (name, ctypes.c_float) for name in (
+            "o_u", "o_v", "o_p", "ds", "imin", "iinv", "vaf", "inv_cvox_v",
+            "inv_cvox_u", "drift_u", "drift_v", "gmin", "ginv")]
+
+
 _SIGNATURES = {
     # (occ, xs_pos, xs_neg, Z, Y, X, cap, stream)
     "vkv_x_scan": [_P, _P, _P, _I, _I, _I, _I, _P],
@@ -74,13 +85,18 @@ _SIGNATURES = {
     "vkv_z_relax8": [_P, _P, _I, _I, _I, _P],
     # (occ, xs, Z, Y, X, stream) / (in, out, Z, Y, X, stream)
     "vkv_x_scan2": [_P, _P, _I, _I, _I, _P],
-    "vkv_y_relax2": [_P, _P, _I, _I, _I, _P],
-    "vkv_z_relax2": [_P, _P, _I, _I, _I, _P],
+    # (in, out, Z, Y, X, axis, dir, stream)
+    "vkv_relax": [_P, _P, _I, _I, _I, _I, _I, _P],
     # (src, pos, out, C, Hs, Ws, Wo, src_u16, encode_out, stream)
     "vkv_resample_rows": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # (wu, wv, s_lo, s_hi, kappa, cov, coarse, cskip, vol, grad, kb_occ,
     #  lum, alpha, firsts, nsamp, params, stream)
     "vkv_sweep_bricks": [_P] * 15 + [BrickParams, _P],
+    # (wu, wv, s_lo, s_hi, kappa, cov, coarse, vol, grad, meta,
+    #  lum, alpha, firsts, nsamp, params, stream)
+    "vkv_sweep_slabs": [_P] * 14 + [SlabParams, _P],
+    # (src, gx, gy, out, C, Hi, Wi, n_pix, stream)
+    "vkv_warp_pixels": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 
@@ -92,7 +108,7 @@ def load_kernels() -> ctypes.CDLL:
         return _lib
     sources = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in sources:
+    for path in sources + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
         with open(path, "rb") as fh:
             h.update(fh.read())
     os.makedirs(BUILD_DIR, exist_ok=True)
