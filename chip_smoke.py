@@ -12,9 +12,10 @@ full-scale synthetic stag beetle (494x832x832 u8) into bench.py's engine
   1. builds the engine (TF edit: occupancy + 8 octant distance maps) and
      prints map_update_ms and the occupancy;
   2. holds every kernel against its plain PyTorch version on the card at the
-     main path's shapes (K3+K4 bit-exact; K1 sample counts and first-hit
-     planes exact, lum and alpha within 1e-5; K2 u16 within 1 LSB, f32
-     within 1e-6 of full scale) and times both;
+     main path's shapes (K3+K4 bit-exact; K1's walk lists equal to the plain
+     walk's, its sample counts and first-hit planes exact, lum and alpha
+     within 1e-5 of the plain sweep; K2 u16 within 1 LSB, f32 within 1e-6
+     of full scale) and times both;
   3. with every launch counter at 0, re-runs the TF edit and renders the
      benchmark pose at 1920x1080 (20 frames x 5 reps, CUDA events), then
      checks that K1-K4 launched, the plan took the brick sweep and the
@@ -47,11 +48,19 @@ full-scale synthetic stag beetle (494x832x832 u8) into bench.py's engine
          ``renderer_counts``, checks that K1, K2, K7 and K8 launched and
          that some frames took the gather warp, holds the frames at
          azimuths 35, 40 and 90 against the plain-PyTorch frames and times
-         one pose of each route;
+         one pose of each route; then holds the orbit's largest sweeps
+         against their plain versions and times them, K1's tile_h-32
+         gradient + lerp variant at azimuth 90 and K7 at azimuth 40, each
+         with its walk kernel alone;
   6. prints the kernel table (each kernel's time, its plain version's,
      the least time the card could take for the same work, and a PyTorch
      call's where one computes the same function) and, as the last line,
      {"ok": true, "device": {...}}.
+
+K1 and K7 each launch two kernels, a walk that lists every tile's visited
+bricks or slabs and a composite over the lists; every check holds the walk
+kernel's lists equal to the plain walk's, and the composite against the
+plain sweep that interleaves the two.
 
 Any failure raises: the script exits non-zero and prints no result. It
 needs a CUDA device and the repository beside it; the synthetic volume is
@@ -89,14 +98,20 @@ ORBIT_POSES = {30.0: ("K1", "K2"), 35.0: ("K7", "K2"), 40.0: ("K7", "gather"),
 # the same rate). Both are NVIDIA's published H100 SXM figures at 700 W.
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
-# Operations per unit of work, counted from the kernels' sources: one
-# sweep sample (index arithmetic, 8 taps and their lerps per volume, TF,
-# powf counted as 20, compositing) with an intensity TF and with a
-# gradient TF; one step of a distance loop in one sense (load, max, min,
-# compare); one warped pixel, plus one channel.
-OPS_PER_SAMPLE = {False: 95, True: 134}
+# Operations per unit of work, counted from the kernels' sources. A sweep
+# sample in range: index arithmetic, the intensity volume's 8 taps and
+# their lerps, its TF; one whose intensity alpha is above 0 (gradient TF
+# only): the gradient map's taps, lerps and TF; one that composites: powf
+# counted as 20, compositing. The other units: one step of a distance loop
+# in one sense (load, max, min, compare); one warped pixel, plus one
+# channel.
+OPS_IN_RANGE, OPS_GRADIENT, OPS_COMPOSITE = 65, 39, 30
 OPS_PER_STEP = 4
 OPS_PER_PIXEL, OPS_PER_CHANNEL = 14, 7
+# A sweep's walk: per window its bounds, leap and final min; per 4-byte
+# word of the window read, its padding and byte-wise min; per cell its six
+# bound reductions.
+OPS_PER_WINDOW, OPS_PER_WORD, OPS_PER_CELL = 40, 2, 6
 
 
 def bound(nbytes: float, ops: float) -> dict:
@@ -116,30 +131,122 @@ def total(t) -> int:
 
 
 def needed_reads(inp) -> dict:
-    """Empty sector maps of the volume and the gradient map, for a plain
-    sweep's ``reads``."""
+    """Empty sector maps of the volume and the gradient map and zeroed
+    sample counts, for a plain sweep's ``reads``."""
+    import torch
     from vkvolume_tpu_torch.render.sweep_bricks import sector_map
 
     return {"vol": sector_map(inp.vol),
-            "grad": None if inp.grad is None else sector_map(inp.grad)}
+            "grad": None if inp.grad is None else sector_map(inp.grad),
+            "passed": torch.zeros(2, dtype=torch.int64,
+                                  device=inp.vol.device)}
 
 
-def sweep_bound(inp, nsamp, reads, gradient: bool) -> dict:
-    """bound_ms of a sweep kernel (K1 or K7) on ``inp``: the 32-byte
-    sectors of the volume and the gradient map that this run's samples
-    need (``reads``, filled by the plain version: ESS leaps, ERT and the
-    zero-intensity samples' gradient taps read nothing), the per-cell
-    fields (five f32 and the coverage byte) in, lum / alpha / first hit /
-    count (4 B each) out, the coarse maps once; the operations of this
-    run's samples (``nsamp``, counted by the kernel)."""
-    maps = [s for s in reads.values() if s is not None]
+def walk_stats(inp) -> dict:
+    """Zeroed window counts and empty sector maps of the coarse maps, for
+    a plain walk's ``stats``."""
+    from vkvolume_tpu_torch.render.sweep_bricks import sector_map
+
+    stats = {"windows": 0, "words": 0, "coarse": sector_map(inp.coarse)}
+    if hasattr(inp, "cskip"):
+        stats["cskip"] = sector_map(inp.cskip)
+    return stats
+
+
+def hold_sweep(inp, what: str):
+    """K1 or K7 on ``inp`` (sample counting on) against its plain versions:
+    the walk kernel's lists equal the plain walk's, and the compositing
+    kernel over them matches the plain sweep that interleaves walk and
+    compositing (sample counts and first-hit planes exact, lum and alpha
+    within 1e-5). Returns (max_abs_err, nsamp, the plain sweep's reads,
+    the plain walk's stats)."""
+    import torch
+    from vkvolume_tpu_torch.render import sweep_bricks, sweep_slabs
+
+    if hasattr(inp, "cskip"):
+        walk, walk_plain = sweep_bricks.brick_walk, sweep_bricks.brick_walk_plain
+        composite = sweep_bricks.sweep_bricks_composite
+        plain = sweep_bricks.sweep_bricks_reference
+    else:
+        walk, walk_plain = sweep_slabs.slab_walk, sweep_slabs.slab_walk_plain
+        composite = sweep_slabs.sweep_slabs_composite
+        plain = sweep_slabs.sweep_slabs_plain
+    lists = walk(inp)
+    stats = walk_stats(inp)
+    want = walk_plain(inp, stats)
+    assert torch.equal(lists.cnt, want.cnt), f"{what}: walk counts differ"
+    assert torch.equal(lists.entries(), want.entries()), \
+        f"{what}: walk lists differ"
+    lum_k, a_k, f_k, n_k = composite(inp, lists)
+    reads = needed_reads(inp)
+    lum_p, a_p, f_p, n_p = plain(inp, reads)
+    assert torch.equal(n_k, n_p), f"{what}: sample counts differ"
+    assert torch.equal(f_k, f_p), f"{what}: first-hit planes differ"
+    err = max(float((lum_k - lum_p).abs().max()),
+              float((a_k - a_p).abs().max()))
+    assert err <= 1e-5, f"{what}: lum/alpha differ by {err}"
+    assert int(n_k.sum()) > 0 and float(a_k.max()) > 0.5
+    log(f"  {what}: walk lists exact ({int(want.cnt.sum())} entries in "
+        f"{want.cnt.numel()} tiles, {stats['windows']} windows, "
+        f"{stats['words']} words in "
+        f"{sum(int(stats[k].sum()) for k in ('coarse', 'cskip') if k in stats)}"
+        f" map sectors), nsamp and first hits exact, lum/alpha "
+        f"err {err:.3g}, samples {int(n_k.sum())} (past the intensity TF, "
+        f"composited: {reads['passed'].tolist()})")
+    return err, n_k, reads, stats
+
+
+def walk_work(inp, stats) -> tuple:
+    """(bytes, operations) of a sweep's walk: the five tile fields it
+    reduces (17 B per cell), the 32-byte sectors of the coarse maps its
+    windows read; per window, per word read and per cell its operations
+    (``stats`` of the plain walk)."""
+    cells = inp.wu.numel()
+    sectors = sum(int(stats[k].sum()) for k in ("coarse", "cskip")
+                  if k in stats)
+    return (17 * cells + 32 * sectors,
+            OPS_PER_WINDOW * stats["windows"] + OPS_PER_WORD * stats["words"]
+            + OPS_PER_CELL * cells)
+
+
+def walk_row(inp, stats, timer) -> dict:
+    """The walk kernel's row: its time, the plain walk's, and its bound
+    (``walk_work``, and the lists written: 2 B per entry, 4 B per
+    tile's count)."""
+    from vkvolume_tpu_torch.render import sweep_bricks, sweep_slabs
+
+    if hasattr(inp, "cskip"):
+        walk, plain = sweep_bricks.brick_walk, sweep_bricks.brick_walk_plain
+    else:
+        walk, plain = sweep_slabs.slab_walk, sweep_slabs.slab_walk_plain
+    lists = walk(inp)
+    nbytes, ops = walk_work(inp, stats)
+    return dict(max_abs_err=0.0, ms=timer(lambda: walk(inp), 10),
+                plain_ms=timer(lambda: plain(inp), 1, warm=0),
+                **bound(nbytes + 2 * int(lists.cnt.sum())
+                        + 4 * lists.cnt.numel(), ops))
+
+
+def sweep_bound(inp, nsamp, reads, stats) -> dict:
+    """bound_ms of a sweep (K1 or K7: walk + compositing) on ``inp``: the
+    walk's work (``walk_work``); the 32-byte sectors of the volume and the
+    gradient map that this run's samples need (``reads``, filled by the
+    plain version: ESS leaps, ERT and the zero-intensity samples' gradient
+    taps read nothing), kappa (4 B per cell) in, lum / alpha / first hit /
+    count (4 B each) out; the operations of this run's samples, each
+    charged only for the steps the kernel takes for it: ``nsamp`` (counted
+    by the kernel) in range, ``reads["passed"]`` past the intensity TF and
+    composited."""
+    maps = [reads[k] for k in ("vol", "grad") if reads[k] is not None]
     needed = 32 * sum(int(s.sum()) for s in maps)
     log(f"  bound: the samples need {needed / 1e6:.3f} MB of the "
         f"{32 * sum(s.numel() for s in maps) / 1e6:.3f} MB of volume maps")
-    nbytes = needed + 37 * inp.wu.numel() + inp.coarse.numel()
-    if getattr(inp, "cskip", None) is not None:           # K1's tight map
-        nbytes += inp.cskip.numel()
-    return bound(nbytes, OPS_PER_SAMPLE[gradient] * total(nsamp))
+    walk_bytes, walk_ops = walk_work(inp, stats)
+    past_intensity, composited = reads["passed"].tolist()
+    ops = (OPS_IN_RANGE * total(nsamp) + OPS_COMPOSITE * composited
+           + (OPS_GRADIENT * past_intensity if inp.params["use_gradient"]
+              else 0))
+    return bound(needed + 20 * inp.wu.numel() + walk_bytes, ops + walk_ops)
 
 
 def log(msg: str) -> None:
@@ -270,15 +377,7 @@ def phase_kernels(eng, cam, timer):
     # Sample counting on: nsamp then checks the brick walk too.
     inp = sweep_bricks.brick_inputs(vol_t, occ_t, eng._tf(v), u, grid,
                                     count_samples=True, **kw)
-    lum_k, a_k, f_k, n_k = sweep_bricks.sweep_bricks_kernel(inp)
-    reads = needed_reads(inp)
-    lum_p, a_p, f_p, n_p = sweep_bricks.sweep_bricks_reference(inp, reads)
-    assert torch.equal(n_k, n_p), "K1 sample counts differ"
-    assert torch.equal(f_k, f_p), "K1 first-hit planes differ"
-    err = max(float((lum_k - lum_p).abs().max()),
-              float((a_k - a_p).abs().max()))
-    assert err <= 1e-5, f"K1 lum/alpha differ by {err}"
-    assert int(n_k.sum()) > 0 and float(a_k.max()) > 0.5
+    err, n_k, reads, stats = hold_sweep(inp, "K1")
     # Timed with the main path's statics.
     inp = sweep_bricks.brick_inputs(vol_t, occ_t, eng._tf(v), u, grid,
                                     count_samples=False, **kw)
@@ -287,8 +386,8 @@ def phase_kernels(eng, cam, timer):
                                10),
                       plain_ms=timer(
                           lambda: sweep_bricks.sweep_bricks_reference(inp), 1),
-                      **sweep_bound(inp, n_k, reads, False))
-    log(f"phase 2: K1 exact nsamp/firsts, lum/alpha err {err:.3g}, grid "
+                      **sweep_bound(inp, n_k, reads, stats))
+    log(f"phase 2: K1 exact walk/nsamp/firsts, lum/alpha err {err:.3g}, grid "
         f"{plan['Hi']}x{plan['Wi']} tile_h={plan['tile_h']} "
         f"samples={int(n_k.sum())}")
 
@@ -362,7 +461,9 @@ def read_launches():
             "K5": distance_cuda.LAUNCHES["scan_and_relax"],
             "K6": distance_cuda.LAUNCHES["relax"],
             "K7": sweep_slabs.LAUNCHES["sweep_slabs"],
-            "K8": warp_cuda.LAUNCHES["warp_to_pixels"]}
+            "K8": warp_cuda.LAUNCHES["warp_to_pixels"],
+            "K1 walk": sweep_bricks.LAUNCHES["brick_walk"],
+            "K7 walk": sweep_slabs.LAUNCHES["slab_walk"]}
 
 
 def plain_frame(eng, cam, width=WIDTH, height=HEIGHT):
@@ -432,8 +533,10 @@ def phase_frame(eng, cam):
         f"{[round(r, 4) for r in reps]} ({FRAMES} frames x {REPS} reps, "
         f"{WIDTH}x{HEIGHT})")
     log(f"phase 3: launches {launches}")
-    assert all(launches[k] > 0 for k in ("K1", "K2", "K3", "K4")), \
+    assert all(launches[k] > 0 for k in ("K1", "K1 walk", "K2", "K3",
+                                         "K4")), \
         "a kernel of the path never ran"
+    assert launches["K1 walk"] == launches["K1"]
 
     pose, _, _ = frame_pose(eng, cam)
     plan = pose["plan"]
@@ -474,7 +577,8 @@ def phase_cli(timer, out_dir):
     torch.cuda.synchronize()
     launches = read_launches()
     log(f"phase 4: launches {launches}")
-    assert all(launches[k] > 0 for k in ("K1", "K2", "K4 two-sided", "K5")), \
+    assert all(launches[k] > 0 for k in ("K1", "K1 walk", "K2",
+                                         "K4 two-sided", "K5")), \
         "a kernel of the CLI path never ran"
     assert launches["K3"] == 0 and launches["K4"] == 0
 
@@ -553,22 +657,14 @@ def phase_cli(timer, out_dir):
     inp = sweep_bricks.brick_inputs(vol_t, occ_t, tf, u, grid,
                                     count_samples=True, **kw)
     assert inp.params["use_gradient"] and not inp.params["aligned"]
-    lum_k, a_k, f_k, n_k = sweep_bricks.sweep_bricks_kernel(inp)
-    reads = needed_reads(inp)
-    lum_p, a_p, f_p, n_p = sweep_bricks.sweep_bricks_reference(inp, reads)
-    assert torch.equal(n_k, n_p), "K1 (gradient + lerp) sample counts differ"
-    assert torch.equal(f_k, f_p), "K1 (gradient + lerp) first hits differ"
-    err = max(float((lum_k - lum_p).abs().max()),
-              float((a_k - a_p).abs().max()))
-    assert err <= 1e-5, f"K1 (gradient + lerp) lum/alpha differ by {err}"
-    assert int(n_k.sum()) > 0 and float(a_k.max()) > 0.5
+    err, n_k, reads, stats = hold_sweep(inp, "K1 (gradient + lerp)")
     inp = sweep_bricks.brick_inputs(vol_t, occ_t, tf, u, grid,
                                     count_samples=False, **kw)
     rows["K1 gradient + lerp"] = dict(
         max_abs_err=err,
         ms=timer(lambda: sweep_bricks.sweep_bricks_kernel(inp), 10),
         plain_ms=timer(lambda: sweep_bricks.sweep_bricks_reference(inp), 1),
-        **sweep_bound(inp, n_k, reads, True))
+        **sweep_bound(inp, n_k, reads, stats))
     log(f"phase 4: K1 gradient + lerp exact nsamp/firsts, lum/alpha err "
         f"{err:.3g}, samples={int(n_k.sum())}")
 
@@ -657,8 +753,9 @@ def phase_orbit(timer, out_dir):
     """(a) the still frame through K7 + K8, (b) the benchmark orbit."""
     import torch
     from vkvolume_tpu_torch import cli
-    from vkvolume_tpu_torch.bench.harness import benchmark_camera
-    from vkvolume_tpu_torch.render import sweep_frame, sweep_slabs, warp_cuda
+    from vkvolume_tpu_torch.bench.harness import benchmark_camera, capture
+    from vkvolume_tpu_torch.render import (sweep_bricks, sweep_frame,
+                                           sweep_slabs, warp_cuda)
     from vkvolume_tpu_torch.render.ray_setup import make_rays
     from vkvolume_tpu_torch.utils.image import read_png
 
@@ -671,7 +768,7 @@ def phase_orbit(timer, out_dir):
     torch.cuda.synchronize()
     launches_a = read_launches()
     log(f"phase 5a: launches {launches_a}")
-    assert launches_a["K7"] > 0 and launches_a["K8"] > 0, \
+    assert all(launches_a[k] > 0 for k in ("K7", "K7 walk", "K8")), \
         "K7 or K8 never ran on the still frame"
     assert route_of(launches_a) == ("K7", "K8")
     v = eng.volumes[0]
@@ -720,15 +817,7 @@ def phase_orbit(timer, out_dir):
         inp = sweep_slabs.slab_inputs(vol_t, occ_t, tf, rays, u, g,
                                       count_samples=True, **kw)
         assert bool(inp.params["use_gradient"]) == (g is not None)
-        lum_k, a_k, f_k, n_k = sweep_slabs.sweep_slabs_kernel(inp)
-        reads = needed_reads(inp)
-        lum_p, a_p, f_p, n_p = sweep_slabs.sweep_slabs_plain(inp, reads)
-        assert torch.equal(n_k, n_p), f"K7 ({variant}) sample counts differ"
-        assert torch.equal(f_k, f_p), f"K7 ({variant}) first hits differ"
-        err = max(float((lum_k - lum_p).abs().max()),
-                  float((a_k - a_p).abs().max()))
-        assert err <= 1e-5, f"K7 ({variant}) lum/alpha differ by {err}"
-        assert int(n_k.sum()) > 0 and float(a_k.max()) > 0.5
+        err, n_k, reads, stats = hold_sweep(inp, f"K7 ({variant})")
         log(f"phase 5a: K7 {variant} TF exact nsamp/firsts, lum/alpha err "
             f"{err:.3g}, samples={int(n_k.sum())}")
         if g is not None:
@@ -739,7 +828,7 @@ def phase_orbit(timer, out_dir):
                 ms=timer(lambda: sweep_slabs.sweep_slabs_kernel(timed), 10),
                 plain_ms=timer(lambda: sweep_slabs.sweep_slabs_plain(timed),
                                1),
-                **sweep_bound(timed, n_k, reads, True))
+                **sweep_bound(timed, n_k, reads, stats))
 
     # K8 on this frame's grid channels and pixel positions.
     grid_out = sweep_slabs.sweep_slabs(
@@ -797,7 +886,8 @@ def phase_orbit(timer, out_dir):
     log(f"phase 5b: renderer_counts {eng.renderer_counts}")
     log(f"phase 5b: launches {launches_b}")
     assert f"ran {CLI_BENCH_FRAMES} frames, averaged " in buf.getvalue()
-    assert all(launches_b[k] > 0 for k in ("K1", "K2", "K7", "K8")), \
+    assert all(launches_b[k] > 0 for k in ("K1", "K1 walk", "K2", "K7",
+                                           "K7 walk", "K8")), \
         "a kernel of the orbit never ran"
     assert eng.renderer_counts.get("pallas_xla_warp", 0) > 0
     assert eng.renderer_counts["pallas"] == CLI_BENCH_FRAMES + 1
@@ -818,6 +908,31 @@ def phase_orbit(timer, out_dir):
         if az != 30.0:
             check_against_plain_frame(eng, cam, color, CLI_WIDTH, CLI_HEIGHT,
                                       f"phase 5b azimuth {az:.0f}")
+
+    # The orbit's largest sweeps on the inputs its frames hand them: K1's
+    # gradient + lerp variant at tile_h 32 (azimuth 90) and K7 on the
+    # 6 M-cell grid of azimuth 40; then each sweep's walk kernel alone.
+    for az, sweep in ((90.0, "K1"), (40.0, "K7")):
+        got, inp = capture(eng, benchmark_camera(aspect, az, 20.0),
+                           CLI_WIDTH, CLI_HEIGHT)
+        p = inp.params
+        assert got == sweep and p["count_samples"] and not p["ert"]
+        assert p["use_gradient"] and p.get("tile_h", 32) == 32
+        err, n_k, reads, stats = hold_sweep(
+            inp, f"phase 5b: {sweep} azimuth {az:.0f}")
+        kernel, plain = ((sweep_bricks.sweep_bricks_kernel,
+                          sweep_bricks.sweep_bricks_reference)
+                         if sweep == "K1" else
+                         (sweep_slabs.sweep_slabs_kernel,
+                          sweep_slabs.sweep_slabs_plain))
+        rows[f"{sweep} orbit"] = dict(
+            max_abs_err=err, ms=timer(lambda: kernel(inp), 10),
+            plain_ms=timer(lambda: plain(inp), 1, warm=0),
+            **sweep_bound(inp, n_k, reads, stats))
+        rows[f"{sweep} walk"] = walk_row(inp, stats, timer)
+        log(f"phase 5b: {sweep} azimuth {az:.0f}: grid {p['H']}x{p['W']}, "
+            f"{rows[f'{sweep} orbit']['ms']:.4f} ms (walk "
+            f"{rows[f'{sweep} walk']['ms']:.4f} ms)")
     return rows, launches_a, launches_b, still_ms, tiers
 
 
@@ -888,9 +1003,26 @@ def main() -> int:
         "K6": ("relax (one relaxation, z two-sided; accel API)",
                accel_launches["K6"], "vkvolume_tpu_torch/csrc/distance.cu",
                "vkvolume_tpu/accel/distance_pallas.py:175"),
+        "K1 orbit": (
+            "sweep_bricks (gradient TF, plane-pair lerp, tile_h 32; orbit "
+            "azimuth 90)", orbit_launches["K1"],
+            "vkvolume_tpu_torch/csrc/sweep_bricks.cu",
+            "vkvolume_tpu/render/sweep_bricks.py:56"),
+        "K1 walk": ("brick_walk (K1's walk alone; orbit azimuth 90)",
+                    orbit_launches["K1 walk"],
+                    "vkvolume_tpu_torch/csrc/sweep_bricks.cu",
+                    "vkvolume_tpu/render/sweep_bricks.py:56"),
         "K7": ("sweep_slabs (gradient TF; narrowed still frame)",
                still_launches["K7"], "vkvolume_tpu_torch/csrc/sweep_slabs.cu",
                "vkvolume_tpu/render/sweep_pallas.py:58"),
+        "K7 orbit": ("sweep_slabs (gradient TF; orbit azimuth 40)",
+                     orbit_launches["K7"],
+                     "vkvolume_tpu_torch/csrc/sweep_slabs.cu",
+                     "vkvolume_tpu/render/sweep_pallas.py:58"),
+        "K7 walk": ("slab_walk (K7's walk alone; orbit azimuth 40)",
+                    orbit_launches["K7 walk"],
+                    "vkvolume_tpu_torch/csrc/sweep_slabs.cu",
+                    "vkvolume_tpu/render/sweep_pallas.py:58"),
         "K8": ("warp_to_pixels (3 channels; narrowed still frame)",
                still_launches["K8"], "vkvolume_tpu_torch/csrc/warp_pixels.cu",
                "vkvolume_tpu/render/warp_pallas.py:26"),

@@ -14,6 +14,7 @@ from vkvolume_tpu_torch.accel import distance, distance_cuda
 from vkvolume_tpu_torch.bench.harness import benchmark_camera, make_engine
 from vkvolume_tpu_torch.options import Test as TTest
 from vkvolume_tpu_torch.render import sweep_bricks, sweep_frame, warp_cuda
+from torch_sweep_frames import frame_parts
 
 pytestmark = pytest.mark.cuda
 
@@ -104,19 +105,11 @@ def test_frame_kernels_match_plain_versions(dev, key, skipmode, density):
     assert float((want[..., 3] > 0).float().mean()) > 0.05
     assert float((got - want).abs().amax(-1).gt(2e-3).float().mean()) <= 1e-3
 
-    v = eng.volumes[0]
-    pose = next(p for k, p in v._sweep_cache.items()
-                if isinstance(k, tuple) and k[0] == "pose")
-    occ_t = next(t for k, t in v._sweep_cache.items()
-                 if isinstance(k, tuple) and k[0] == "occ")
-    plan, p = pose["plan"], pose["view"]["p_axis"]
-    u, _, gp, _ = sweep_frame.unpack_frame_scalars(pose["packed"])
-    vol_t = v._sweep_cache[p]
-    tf = eng._tf(v)
-    grad_t = v._sweep_cache.get(("grad", p))
+    f = frame_parts(eng, cam, 256, 256)
+    u, p, plan, gp, vol_t, occ_t, tf, grad_t, n_slabs = (
+        f[k] for k in ("u", "p", "plan", "gp", "vol_t", "occ_t", "tf",
+                       "grad_t", "n_slabs"))
     assert (grad_t is not None) == bool(tf.use_gradient)
-    n_slabs = int(max(2, round(vol_t.shape[0] * eng._slab_oversample(
-        v, vol_t.shape, tf))))
     aligned = density == "axis" or (density == "auto"
                                     and not tf.use_gradient)
     assert (n_slabs == vol_t.shape[0]) == aligned
@@ -198,24 +191,15 @@ def test_slab_sweep_and_single_pass_warp_frame(dev, flags):
     assert float((want[..., 3] > 0).float().mean()) > 0.02
     assert float((got - want).abs().amax(-1).gt(2e-3).float().mean()) <= 1e-3
 
-    v = eng.volumes[0]
-    pose = next(p for k, p in v._sweep_cache.items()
-                if isinstance(k, tuple) and k[0] == "pose")
-    occ_t = next(t for k, t in v._sweep_cache.items()
-                 if isinstance(k, tuple) and k[0] == "occ")
-    plan, p = pose["plan"], pose["view"]["p_axis"]
-    u, _, gp, _ = sweep_frame.unpack_frame_scalars(pose["packed"])
-    vol_t = v._sweep_cache[p]
-    tf = eng._tf(v)
-    n_slabs = int(max(2, round(vol_t.shape[0] * eng._slab_oversample(
-        v, vol_t.shape, tf))))
-    assert n_slabs < vol_t.shape[0]
-    wu, wv = sweep_frame.w_grid(gp, plan["Hi"], plan["Wi"], dev)
+    f = frame_parts(eng, cam, 384, 256)
+    u, p, plan = f["u"], f["p"], f["plan"]
+    assert f["n_slabs"] < f["vol_t"].shape[0]
+    wu, wv = sweep_frame.w_grid(f["gp"], plan["Hi"], plan["Wi"], dev)
     rays = sweep_frame.grid_rays(u, wu, wv, p, plan["sgn_p"])
     for ert in (True, False):
         inp = sweep_slabs.slab_inputs(
-            vol_t, occ_t, tf, rays, u, v._sweep_cache.get(("grad", p)),
-            p_axis=p, ert=ert, count_samples=True, n_slabs=n_slabs,
+            f["vol_t"], f["occ_t"], f["tf"], rays, u, f["grad_t"], p_axis=p,
+            ert=ert, count_samples=True, n_slabs=f["n_slabs"],
             dist_leap=True, separable=True)
         k = sweep_slabs.sweep_slabs_kernel(inp)
         r = sweep_slabs.sweep_slabs_plain(inp)
@@ -223,3 +207,79 @@ def test_slab_sweep_and_single_pass_warp_frame(dev, flags):
         assert int(k[3].sum()) > 0
         assert float((k[0] - r[0]).abs().max()) <= 1e-5
         assert float((k[1] - r[1]).abs().max()) <= 1e-5
+
+
+def _brick_frame(key, skipmode, density, azimuth):
+    """``frame_parts`` of a small beetle frame on the card."""
+    eng, _, _, _ = make_engine(key, skipmode, 4, scale=0.1, test=TTest.NONE,
+                               ert=True, device="cuda")
+    eng.options.slab_density = density
+    return frame_parts(eng, benchmark_camera(aspect=1.0, azimuth=azimuth),
+                       256, 256)
+
+
+@pytest.mark.parametrize("azimuth", [30.0, 210.0])
+@pytest.mark.parametrize("key,skipmode,density", [
+    ("beetle", 3, "auto"), ("beetle-grad", 2, "auto"),
+    ("beetle-grad", 2, "axis"), ("beetle", 2, "ref")])
+def test_brick_kernels_at_tile_h_32(dev, key, skipmode, density, azimuth):
+    """Every K1 variant at tile_h 32 (the tile of the orbit's side poses),
+    both sweep signs, ERT on and off: the walk kernel's lists are the plain
+    walk's, and the compositing kernel over them gives the interleaved
+    plain sweep bit for bit."""
+    f = _brick_frame(key, skipmode, density, azimuth)
+    u, p, plan, gp, vol_t, occ_t, tf, grad_t, n_slabs = (
+        f[k] for k in ("u", "p", "plan", "gp", "vol_t", "occ_t", "tf",
+                       "grad_t", "n_slabs"))
+    wu, wv = sweep_frame.w_grid(gp, plan["Hi"] // 32 * 32, plan["Wi"], dev)
+    sgn = 1 if plan["sgn_p"] > 0 else -1
+    assert sgn == (-1 if azimuth == 30.0 else 1)
+    s_lo, s_hi, cov, kappa = sweep_bricks.grid_fields(
+        u, wu, wv, sgn, p, max(vol_t.shape), n_slabs)
+    for ert in (True, False):
+        inp = sweep_bricks.brick_inputs(
+            vol_t, occ_t, tf, u, (wu, wv, s_lo, s_hi, kappa, cov), p_axis=p,
+            ert=ert, count_samples=True, n_slabs=n_slabs, sgn=sgn, tile_h=32,
+            dist_leap=True, grad_t=grad_t)
+        before = dict(sweep_bricks.LAUNCHES)
+        lists = sweep_bricks.brick_walk(inp)
+        got = sweep_bricks.sweep_bricks_composite(inp, lists)
+        assert sweep_bricks.LAUNCHES == {k: n + 1 for k, n in before.items()}
+        want = sweep_bricks.brick_walk_plain(inp)
+        assert torch.equal(lists.cnt, want.cnt)
+        assert torch.equal(lists.entries(), want.entries())
+        assert int(want.cnt.sum()) > 0
+        for a, b in zip(got, sweep_bricks.sweep_bricks_reference(inp)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("flags", [["--sampling", "0.5", "--gmax", "0"],
+                                   ["--sampling", "0.25"]])
+def test_slab_walk_kernel(dev, flags):
+    """K7's walk kernel against the plain walk on a small frame's rays
+    (separable and per-cell v), and the compositing kernel over its lists
+    against the interleaved plain sweep, bit for bit."""
+    from vkvolume_tpu_torch import cli
+    from vkvolume_tpu_torch.render import sweep_slabs
+
+    eng, vols = cli.setup_engine(cli.build_parser().parse_args(
+        ["--synth", "beetle", "--synth-scale", "0.1", "--width", "384",
+         "--height", "256", "--device", "cuda"] + flags))
+    eng.add_volume(vols[0])
+    f = frame_parts(eng, cli.cli_camera(384, 256), 384, 256)
+    u, p, plan = f["u"], f["p"], f["plan"]
+    wu, wv = sweep_frame.w_grid(f["gp"], plan["Hi"], plan["Wi"], dev)
+    rays = sweep_frame.grid_rays(u, wu, wv, p, plan["sgn_p"])
+    for separable in (True, False):
+        inp = sweep_slabs.slab_inputs(
+            f["vol_t"], f["occ_t"], f["tf"], rays, u, f["grad_t"], p_axis=p,
+            ert=True, count_samples=True, n_slabs=f["n_slabs"],
+            dist_leap=True, separable=separable)
+        lists = sweep_slabs.slab_walk(inp)
+        want = sweep_slabs.slab_walk_plain(inp)
+        assert torch.equal(lists.cnt, want.cnt)
+        assert torch.equal(lists.entries(), want.entries())
+        assert int(want.cnt.sum()) > 0
+        got = sweep_slabs.sweep_slabs_composite(inp, lists)
+        for a, b in zip(got, sweep_slabs.sweep_slabs_plain(inp)):
+            assert torch.equal(a, b)

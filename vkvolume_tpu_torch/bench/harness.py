@@ -66,3 +66,28 @@ def make_engine(
     vol.set_scale((100.0 / max(d, h, w),) * 3)
     stats = eng.add_volume(vol)
     return eng, stats, volume_u8, load_s
+
+
+def capture(engine, camera, width: int, height: int):
+    """(sweep, inputs) of the last sweep one frame launches: "K1" and its
+    ``BrickInputs`` or "K7" and its ``SlabInputs``, exactly as the frame
+    builds them (renders the frame once)."""
+    from ..render import sweep_bricks, sweep_slabs
+
+    got = []
+    saved = (sweep_bricks.sweep_bricks_kernel, sweep_slabs.sweep_slabs_kernel)
+
+    def grab(name, fn):
+        def run(inp):
+            got.append((name, inp))
+            return fn(inp)
+        return run
+
+    sweep_bricks.sweep_bricks_kernel = grab("K1", saved[0])
+    sweep_slabs.sweep_slabs_kernel = grab("K7", saved[1])
+    try:
+        engine.render(camera, width, height)
+    finally:
+        sweep_bricks.sweep_bricks_kernel, sweep_slabs.sweep_slabs_kernel = saved
+    assert got, "the frame ran no sweep"
+    return got[-1]

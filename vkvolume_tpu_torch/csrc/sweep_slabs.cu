@@ -9,33 +9,32 @@
 // alpha, first-hit plane and sample count. The frame runs it when the
 // brick sweep (K1) cannot: fewer slabs than voxel planes, or no brick rect.
 //
-// What bounds it on the H100: the control work of the tile-uniform slab
-// walk and the per-sample math, not DRAM bandwidth. Every slab costs the
-// block one coarse-window reduction and two block votes (ERT "live", "any
-// work"), and a sample reads 8 texels (4 taps x 2 planes) per volume, which
-// neighbouring pixels share through L1/L2.
+// What bounds it on the H100: the per-sample math and the texel gathers (8
+// taps, 4 x 2 planes, per volume, shared by neighbouring pixels through
+// L1/L2), and the tile's slab walk: a chain of one coarse-window minimum
+// per visited slab, which a tile follows 32 slabs at a time.
 //
-// Design:
-// * The TPU kernel's tile is the CUDA block: 128 x 4 threads, each thread
-//   one pixel column and two rows of the tile, with its pixels' state in
-//   registers (tile_block.cuh).
-// * The slab walk (slab range, occupied range, next_valid, leap_target,
-//   window_min_d) depends only on block-reduced bounds of the tile's
-//   covered rays, so every thread computes the same scalars; the window
-//   minimum over the coarse map is a block reduction, the ERT and "any
-//   work" tests are __syncthreads_or. This keeps the sampled slabs, hence
-//   nsamp and the first-hit planes, the TPU kernel's. TPU details that
-//   decide which slabs are sampled are kept: the 16-row coarse window
-//   with its "taller than 16 rows -> occupied" rule (sweep_pallas.py:
-//   198-208), the pair-wide footprint (:179-188), leap_target's formula
-//   (:214-228); the wrapper pools the coarse map as the TPU's (<= 128
-//   columns, >= 8 voxels along v; :565-583).
+// Design: two kernels (tile_walk.cuh).
+// * slab_walk_kernel: one warp per tile computes the tile's visited slabs
+//   in sweep order (slab range, occupied range, next_valid, leap_target,
+//   window_min_d) from its reduced ray bounds, exactly the TPU kernel's
+//   walk (followed 32 probes at a time, walk_tile), so the sampled slabs,
+//   hence nsamp and the first-hit planes, are its too. TPU details that
+//   decide which slabs are sampled are kept: the 16-row coarse window with
+//   its "taller than 16 rows -> occupied" rule (sweep_pallas.py:198-208),
+//   the pair-wide footprint (:179-188), leap_target's formula (:214-228);
+//   the wrapper pools the coarse map as the TPU's (<= 128 columns, >= 8
+//   voxels along v; :565-583).
+// * sweep_slabs_kernel: one thread per pixel, 128 x 2 per block; each warp
+//   runs down its tile's list, skips a slab none of its pixels samples and
+//   leaves when every pixel is opaque (ERT), uncovered or past its range
+//   (warp votes; no barrier).
 // * TPU details that cannot change a result are dropped: the 256-lane
 //   rect DMA with its aligned bases and the padded extents Sv_pad/Su_pad
 //   (the plan sizes R so that every covered sample lies in the rect; here
 //   texels are read straight from the volume), the 4-deep prefetch ring
 //   (:286-297, :472-477, :490-496; its slab sequence is the same chain of
-//   next_valid calls, which this loop walks one by one), and the separable
+//   next_valid calls, which the walk writes out), and the separable
 //   (8,R)@(R,128) tent matmul (:393-437; the tent weights are non-zero on
 //   at most two rows, so it is the per-pixel bilinear sum w0*c0 + w1*c1).
 // * The index arithmetic is the TPU kernel's (:323-338): qu not clamped
@@ -52,7 +51,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "tile_block.cuh"
+#include "tile_walk.cuh"
 
 // Launch scalars; mirrored field for field by cuda_build.SlabParams.
 struct SlabParams {
@@ -68,19 +67,22 @@ struct SlabParams {
 namespace {
 
 constexpr int kTileH = 8;
-constexpr int kPPT = kTileH / kRows;        // pixels per thread
 
-// Tile-uniform state of the slab walk (identical in every thread).
+__device__ __forceinline__ float slab_s(const SlabParams& p, int k) {
+  return ((float)k + 0.5f) * p.ds;
+}
+
+// Tile-uniform state of the slab walk (identical in every lane).
 struct SlabWalk {
   SlabParams p;
   const uint8_t* coarse;
   float wu_min, wu_max, wv_min, wv_max, rate, inv_dsNp;
   int sgn, d_pair, k_end;
 
-  __device__ float slab_s(int k) const { return ((float)k + 0.5f) * p.ds; }
   // First voxel plane of slab k's plane pair.
   __device__ int k0_of(int k) const {
-    return clampi(f2i(floorf(slab_s(k) * (float)p.Np - 0.5f)), 0, p.Np - 2);
+    return clampi(f2i(floorf(slab_s(p, k) * (float)p.Np - 0.5f)), 0,
+                  p.Np - 2);
   }
   __device__ bool in_range(int k) const {
     return sgn > 0 ? k < k_end : k > k_end;
@@ -88,7 +90,7 @@ struct SlabWalk {
   // Texel-coordinate bounds of the tile's footprint on slab k.
   __device__ void bounds(int k, float& qu_lo, float& qu_hi, float& qv_lo,
                          float& qv_hi) const {
-    const float t = slab_s(k) - p.o_p;
+    const float t = slab_s(p, k) - p.o_p;
     qu_lo = (p.o_u + fminf(wu_min * t, wu_max * t)) * (float)p.Su - 0.5f;
     qu_hi = (p.o_u + fmaxf(wu_min * t, wu_max * t)) * (float)p.Su - 0.5f;
     qv_lo = (p.o_v + fminf(wv_min * t, wv_max * t)) * (float)p.Sv - 0.5f;
@@ -100,36 +102,16 @@ struct SlabWalk {
   // map planes ahead. 0: an occupied cell may be in the footprint (or the
   // window is taller than the TPU kernel's 16-row view); d >= 1: every cell
   // within Chebyshev d-1 of the footprint is empty.
-  __device__ int window_min_d(int k, Scratch& sh) const {
+  __device__ int window_min_d(int k) const {
     const int kc = clampi(k, 0, p.n_slabs - 1);
     const int k2 = clampi(kc + (sgn > 0 ? d_pair : -d_pair), 0,
                           p.n_slabs - 1);
     float a1, b1, c1, e1, a2, b2, c2, e2;
     bounds(kc, a1, b1, c1, e1);
     bounds(k2, a2, b2, c2, e2);
-    const float qu_lo = fminf(a1, a2), qu_hi = fmaxf(b1, b2);
-    const float qv_lo = fminf(c1, c2), qv_hi = fmaxf(e1, e2);
     const int m0 = clampi(floordiv(k0_of(kc), p.bp_p), 0, p.mp - 1);
-    const int cv_lo = clampi(f2i(floorf((qv_lo - 1.0f) * p.inv_cvox_v)), 0,
-                             p.CV - 1);
-    const int cv_hi = clampi(f2i(floorf((qv_hi + 2.0f) * p.inv_cvox_v)), 0,
-                             p.CV - 1);
-    const int cu_lo = clampi(f2i(floorf((qu_lo - 1.0f) * p.inv_cvox_u)), 0,
-                             p.CU - 1);
-    const int cu_hi = clampi(f2i(floorf((qu_hi + 2.0f) * p.inv_cvox_u)), 0,
-                             p.CU - 1);
-    const int cv8 = clampi(floordiv(cv_lo, 8) * 8, 0, max(p.CVp - 16, 0));
-    if (cv_hi > cv8 + 15) return 0;                  // uniform: no reduction
-    int v = 255;
-    const int col = threadIdx.x;
-    if (col >= cu_lo && col <= cu_hi) {
-      for (int r = threadIdx.y; r < 16; r += kRows) {
-        const int row = cv8 + r;
-        if (row >= cv_lo && row <= cv_hi)
-          v = min(v, (int)coarse[((size_t)m0 * p.CVp + row) * kTileW + col]);
-      }
-    }
-    return block_min_int(v, sh);
+    return window_min(p, coarse, m0, fminf(a1, a2), fmaxf(b1, b2),
+                      fminf(c1, c2), fmaxf(e1, e2));
   }
 
   // The slab past the empty Chebyshev ball of radius d-1 around slab k's
@@ -145,17 +127,58 @@ struct SlabWalk {
         ((float)((c0 - P) * p.bp_p) + 0.5f) * inv_dsNp - 0.5f)) - 1);
   }
 
-  // First slab from k on (in sweep order) whose footprint holds an
-  // occupied map cell, leaping over empty space.
-  __device__ int next_valid(int k, Scratch& sh) const {
-    while (in_range(k)) {
-      const int d = window_min_d(k, sh);
-      if (d == 0) return k;
-      k = leap_target(k, d);
-    }
-    return k;
+  // One step of the TPU kernel's next_valid: true when slab k's footprint
+  // holds an occupied map cell, else next = the slab past the empty space.
+  __device__ bool probe(int k, int& next) const {
+    const int d = window_min_d(k);
+    if (d == 0) return true;
+    next = leap_target(k, d);
+    return false;
   }
 };
+
+// One warp per tile: cnt[tile] visited slabs, in sweep order, in
+// lst[tile * n_slabs ...].
+__global__ void __launch_bounds__(kWalkWarps * 32)
+slab_walk_kernel(const float* __restrict__ wu, const float* __restrict__ wv,
+                 const float* __restrict__ s_lo_g,
+                 const float* __restrict__ s_hi_g,
+                 const uint8_t* __restrict__ cov_g,
+                 const uint8_t* __restrict__ coarse,
+                 const int* __restrict__ meta, int* __restrict__ cnt,
+                 int16_t* __restrict__ lst, SlabParams p) {
+  TileBounds b;
+  if (!tile_bounds(wu, wv, s_lo_g, s_hi_g, cov_g, p.H, p.W, kTileH, b))
+    return;                                        // warp-uniform
+  int16_t* out = lst + (size_t)b.tile * p.n_slabs;
+  int n = 0;
+  if (b.any) {
+    SlabWalk T;
+    T.p = p;
+    T.coarse = coarse;
+    T.sgn = meta[2];
+    T.wu_min = b.wu_min;
+    T.wu_max = b.wu_max;
+    T.wv_min = b.wv_min;
+    T.wv_max = b.wv_max;
+    T.rate = fmaxf(1.0f, fmaxf(fmaxf(fabsf(T.wu_min), fabsf(T.wu_max))
+                                   * p.drift_u,
+                               fmaxf(fabsf(T.wv_min), fabsf(T.wv_max))
+                                   * p.drift_v));
+    T.inv_dsNp = 1.0f / (p.ds * (float)p.Np);    // slabs per voxel plane
+    // Slabs per two map planes along p.
+    T.d_pair = f2i(ceilf(2.0f * (float)p.bp_p / (p.ds * (float)p.Np)));
+
+    // Slab range covering [s_lo, s_hi], clamped to the occupied range.
+    int k_a = f2i(floorf(b.s_lo / p.ds - 0.5f));
+    int k_b = f2i(ceilf(b.s_hi / p.ds - 0.5f));
+    k_a = clampi(max(k_a, meta[0]), 0, p.n_slabs - 1);
+    k_b = clampi(min(k_b, meta[1]), 0, p.n_slabs - 1);
+    T.k_end = T.sgn > 0 ? k_b + 1 : k_a - 1;
+    n = walk_tile(T, T.sgn > 0 ? k_a : k_b, T.sgn, out);
+  }
+  if ((threadIdx.x & 31) == 0) cnt[b.tile] = n;
+}
 
 // One tap: the plane lerp of texel `off` of plane0 and the next plane.
 __device__ __forceinline__ float tap(const uint8_t* __restrict__ plane0,
@@ -181,187 +204,140 @@ __device__ __forceinline__ float trilinear(const uint8_t* __restrict__ plane0,
   return (w0 * c0 + w1 * c1) * kInv255;
 }
 
+// One thread per pixel; the pixel's tile's slab list from the walk.
 template <bool GRAD>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kTileW * kRowsPerBlock)
 sweep_slabs_kernel(const float* __restrict__ wu, const float* __restrict__ wv,
                    const float* __restrict__ s_lo_g,
                    const float* __restrict__ s_hi_g,
                    const float* __restrict__ kappa_g,
                    const uint8_t* __restrict__ cov_g,
-                   const uint8_t* __restrict__ coarse,
                    const uint8_t* __restrict__ vol,
                    const uint8_t* __restrict__ grad,
                    const int* __restrict__ meta,
+                   const int* __restrict__ cnt,
+                   const int16_t* __restrict__ lst,
                    float* __restrict__ lum_o, float* __restrict__ alpha_o,
                    float* __restrict__ firsts_o, int* __restrict__ nsamp_o,
                    SlabParams p) {
-  __shared__ Scratch sh;
   const int x = blockIdx.x * kTileW + threadIdx.x;
-  const int y0 = blockIdx.y * kTileH;
+  const int y = blockIdx.y * kRowsPerBlock + threadIdx.y;
+  const int tile = (y / kTileH) * (p.W / kTileW) + blockIdx.x;
   const size_t W = (size_t)p.W;
+  const size_t idx = y * W + x;
+  const int lane = threadIdx.x & 31;
 
-  float wur[kPPT], wvq[kPPT], slo[kPPT], shi[kPPT], kap[kPPT];
-  bool cv[kPPT];
-  float lum[kPPT], alp[kPPT], fst[kPPT];
-  int ns[kPPT];
-  float r_slo = kBig, r_shi = -kBig, r_wu0 = kBig, r_wu1 = -kBig;
-  float r_wv0 = kBig, r_wv1 = -kBig;
-  bool r_any = false;
-#pragma unroll
-  for (int i = 0; i < kPPT; ++i) {
-    const int y = y0 + threadIdx.y + kRows * i;
-    const size_t idx = y * W + x;
-    const float wvv = wv[idx];
-    wur[i] = wu[idx];
-    wvq[i] = p.separable ? wv[y * W + blockIdx.x * kTileW] : wvv;
-    slo[i] = s_lo_g[idx];
-    shi[i] = s_hi_g[idx];
-    kap[i] = kappa_g[idx];
-    cv[i] = cov_g[idx] != 0;
-    if (cv[i]) {
-      r_slo = fminf(r_slo, slo[i]);
-      r_shi = fmaxf(r_shi, shi[i]);
-      r_wu0 = fminf(r_wu0, wur[i]);
-      r_wu1 = fmaxf(r_wu1, wur[i]);
-      r_wv0 = fminf(r_wv0, wvv);
-      r_wv1 = fmaxf(r_wv1, wvv);
-      r_any = true;
-    }
-    lum[i] = 0.0f;
-    alp[i] = 0.0f;
-    fst[i] = 2.0f;
-    ns[i] = 0;
-  }
+  const float wur = wu[idx];
+  const float wvq = p.separable ? wv[y * W + blockIdx.x * kTileW] : wv[idx];
+  const float slo = s_lo_g[idx], shi = s_hi_g[idx], kap = kappa_g[idx];
+  const bool cv = cov_g[idx] != 0;
+  float lum = 0.0f, alp = 0.0f, fst = 2.0f;
+  int ns = 0;
 
-  if (__syncthreads_or(r_any)) {                  // uniform branch
-    SlabWalk T;
-    T.p = p;
-    T.coarse = coarse;
-    T.sgn = meta[2];
-    const float s_lo_t = block_min(r_slo, sh);
-    const float s_hi_t = block_max(r_shi, sh);
-    T.wu_min = block_min(r_wu0, sh);
-    T.wu_max = block_max(r_wu1, sh);
-    T.wv_min = block_min(r_wv0, sh);
-    T.wv_max = block_max(r_wv1, sh);
-    T.rate = fmaxf(1.0f, fmaxf(fmaxf(fabsf(T.wu_min), fabsf(T.wu_max))
-                                   * p.drift_u,
-                               fmaxf(fabsf(T.wv_min), fabsf(T.wv_max))
-                                   * p.drift_v));
-    T.inv_dsNp = 1.0f / (p.ds * (float)p.Np);    // slabs per voxel plane
-    // Slabs per two map planes along p.
-    T.d_pair = f2i(ceilf(2.0f * (float)p.bp_p / (p.ds * (float)p.Np)));
-
-    // Slab range covering [s_lo_t, s_hi_t], clamped to the occupied range.
-    int k_a = f2i(floorf(s_lo_t / p.ds - 0.5f));
-    int k_b = f2i(ceilf(s_hi_t / p.ds - 0.5f));
-    k_a = clampi(max(k_a, meta[0]), 0, p.n_slabs - 1);
-    k_b = clampi(min(k_b, meta[1]), 0, p.n_slabs - 1);
-    int k;
-    if (T.sgn > 0) {
-      k = k_a;
-      T.k_end = k_b + 1;
-    } else {
-      k = k_b;
-      T.k_end = k_a - 1;
-    }
-    const float Suf = (float)p.Su, Svf = (float)p.Sv, Npf = (float)p.Np;
-    const size_t plane_sz = (size_t)p.Sv * p.Su;
-
-    k = T.next_valid(k, sh);
-    while (T.in_range(k)) {
-      if (p.ert) {                                 // any covered pixel live?
-        bool live = false;
-#pragma unroll
-        for (int i = 0; i < kPPT; ++i) live = live || (cv[i] && alp[i] <= 0.99f);
-        if (!__syncthreads_or(live)) break;
+  const int sgn = meta[2];
+  const int16_t* list = lst + (size_t)tile * p.n_slabs;
+  const int n = cnt[tile];
+  const float Suf = (float)p.Su, Svf = (float)p.Sv, Npf = (float)p.Np;
+  const size_t plane_sz = (size_t)p.Sv * p.Su;
+  bool done = false;
+  for (int base = 0; base < n && !done; base += 32) {
+    const int mine = base + lane < n ? list[base + lane] : 0;
+    const int m = min(32, n - base);
+    for (int e = 0; e < m; ++e) {
+      const int k = __shfl_sync(kFull, mine, e);
+      const float s = slab_s(p, k);
+      // Can this pixel take a sample at this slab or a later one?
+      const bool live = cv && (!p.ert || alp <= 0.99f);
+      if (!__any_sync(kFull, live && (sgn > 0 ? s <= shi : s >= slo))) {
+        done = true;
+        break;
       }
-      const float s = T.slab_s(k);
-      bool work = false;
-#pragma unroll
-      for (int i = 0; i < kPPT; ++i)
-        work = work || (cv[i] && s >= slo[i] && s <= shi[i]
-                        && (!p.ert || alp[i] <= 0.99f));
-      if (__syncthreads_or(work)) {
-        const float t = s - p.o_p;
-        const float zp = s * Npf - 0.5f;
-        const int k0 = clampi(f2i(floorf(zp)), 0, p.Np - 2);
-        const float fp = clampf(zp - (float)k0, 0.0f, 1.0f);
-        const size_t plane_off = (size_t)k0 * plane_sz;
-#pragma unroll
-        for (int i = 0; i < kPPT; ++i) {
-          bool in_rng = cv[i] && s >= slo[i] && s <= shi[i];
-          if (p.ert) in_rng = in_rng && alp[i] <= 0.99f;
-          if (p.count_samples) ns[i] += in_rng ? 1 : 0;
-          if (!in_rng) continue;
-          const float qu = (p.o_u + wur[i] * t) * Suf - 0.5f;
-          const float flu = floorf(qu);
-          const int iu0 = clampi(f2i(flu), 0, p.Su - 1);
-          const int iu1 = min(iu0 + 1, p.Su - 1);
-          const float fu = clampf(qu - flu, 0.0f, 1.0f);
-          const float qv = clampf((p.o_v + wvq[i] * t) * Svf - 0.5f, 0.0f,
-                                  Svf - 1.0f);
-          const int r0 = clampi(f2i(floorf(qv)), 0, p.Sv - 1);
-          const int r1 = min(r0 + 1, p.Sv - 1);
-          const float w0 = fmaxf(0.0f, 1.0f - fabsf(qv - (float)r0));
-          const float w1 = fmaxf(0.0f, 1.0f - fabsf(qv - (float)(r0 + 1)));
-          const size_t o0 = (size_t)r0 * p.Su, o1 = (size_t)r1 * p.Su;
-          const float intensity = trilinear(vol + plane_off, plane_sz, fp,
-                                            o0, o1, iu0, iu1, fu, w0, w1);
-          float a_tf = clampf((intensity - p.imin) * p.iinv, 0.0f, 1.0f);
-          if (!(a_tf > 0.0f)) continue;
-          if (GRAD) {
-            // A zero intensity alpha skips these taps: the product is 0.
-            const float gradient = trilinear(grad + plane_off, plane_sz, fp,
-                                             o0, o1, iu0, iu1, fu, w0, w1);
-            a_tf = a_tf * clampf((gradient - p.gmin) * p.ginv, 0.0f, 1.0f);
-            if (!(a_tf > 0.0f)) continue;
-          }
-          const float a_corr = clampf(
-              p.vaf * (1.0f - powf(1.0f - a_tf, kap[i])), 0.0f, 1.0f);
-          const float one_m = 1.0f - alp[i];
-          lum[i] = lum[i] + one_m * a_tf * a_corr;
-          float na = alp[i] + one_m * a_corr;
-          if (a_corr > 0.0f && fst[i] > 1.5f) fst[i] = s;
-          if (p.ert && na > 0.99f) na = 1.0f;
-          alp[i] = na;
-        }
+      const bool in_rng = live && s >= slo && s <= shi;
+      if (!__any_sync(kFull, in_rng)) continue;
+      if (p.count_samples) ns += in_rng ? 1 : 0;
+      if (!in_rng) continue;
+      const float t = s - p.o_p;
+      const float zp = s * Npf - 0.5f;
+      const int k0 = clampi(f2i(floorf(zp)), 0, p.Np - 2);
+      const float fp = clampf(zp - (float)k0, 0.0f, 1.0f);
+      const size_t plane_off = (size_t)k0 * plane_sz;
+      const float qu = (p.o_u + wur * t) * Suf - 0.5f;
+      const float flu = floorf(qu);
+      const int iu0 = clampi(f2i(flu), 0, p.Su - 1);
+      const int iu1 = min(iu0 + 1, p.Su - 1);
+      const float fu = clampf(qu - flu, 0.0f, 1.0f);
+      const float qv = clampf((p.o_v + wvq * t) * Svf - 0.5f, 0.0f,
+                              Svf - 1.0f);
+      const int r0 = clampi(f2i(floorf(qv)), 0, p.Sv - 1);
+      const int r1 = min(r0 + 1, p.Sv - 1);
+      const float w0 = fmaxf(0.0f, 1.0f - fabsf(qv - (float)r0));
+      const float w1 = fmaxf(0.0f, 1.0f - fabsf(qv - (float)(r0 + 1)));
+      const size_t o0 = (size_t)r0 * p.Su, o1 = (size_t)r1 * p.Su;
+      const float intensity = trilinear(vol + plane_off, plane_sz, fp, o0,
+                                        o1, iu0, iu1, fu, w0, w1);
+      float a_tf = clampf((intensity - p.imin) * p.iinv, 0.0f, 1.0f);
+      if (!(a_tf > 0.0f)) continue;
+      if (GRAD) {
+        // A zero intensity alpha skips these taps: the product is 0.
+        const float gradient = trilinear(grad + plane_off, plane_sz, fp, o0,
+                                         o1, iu0, iu1, fu, w0, w1);
+        a_tf = a_tf * clampf((gradient - p.gmin) * p.ginv, 0.0f, 1.0f);
+        if (!(a_tf > 0.0f)) continue;
       }
-      k = T.next_valid(k + T.sgn, sh);
+      const float a_corr = clampf(
+          p.vaf * (1.0f - powf(1.0f - a_tf, kap)), 0.0f, 1.0f);
+      const float one_m = 1.0f - alp;
+      lum = lum + one_m * a_tf * a_corr;
+      float na = alp + one_m * a_corr;
+      if (a_corr > 0.0f && fst > 1.5f) fst = s;
+      if (p.ert && na > 0.99f) na = 1.0f;
+      alp = na;
     }
   }
-
-#pragma unroll
-  for (int i = 0; i < kPPT; ++i) {
-    const size_t idx = (y0 + threadIdx.y + kRows * i) * W + x;
-    lum_o[idx] = lum[i];
-    alpha_o[idx] = alp[i];
-    firsts_o[idx] = fst[i];
-    nsamp_o[idx] = ns[i];
-  }
+  lum_o[idx] = lum;
+  alpha_o[idx] = alp;
+  firsts_o[idx] = fst;
+  nsamp_o[idx] = ns;
 }
 
 }  // namespace
 
+extern "C" int vkv_slab_walk(const void* wu, const void* wv,
+                             const void* s_lo, const void* s_hi,
+                             const void* cov, const void* coarse,
+                             const void* meta, void* cnt, void* lst,
+                             SlabParams p, void* stream) {
+  if (p.H <= 0 || p.W <= 0) return 0;
+  if (p.H % kTileH || p.W % kTileW) return (int)cudaErrorInvalidValue;
+  const int tiles = (p.H / kTileH) * (p.W / kTileW);
+  slab_walk_kernel<<<(tiles + kWalkWarps - 1) / kWalkWarps, kWalkWarps * 32,
+                     0, (cudaStream_t)stream>>>(
+      (const float*)wu, (const float*)wv, (const float*)s_lo,
+      (const float*)s_hi, (const uint8_t*)cov, (const uint8_t*)coarse,
+      (const int*)meta, (int*)cnt, (int16_t*)lst, p);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int vkv_sweep_slabs(const void* wu, const void* wv,
                                const void* s_lo, const void* s_hi,
                                const void* kappa, const void* cov,
-                               const void* coarse, const void* vol,
-                               const void* grad, const void* meta, void* lum,
-                               void* alpha, void* firsts, void* nsamp,
-                               SlabParams p, void* stream) {
+                               const void* vol, const void* grad,
+                               const void* meta, const void* cnt,
+                               const void* lst, void* lum, void* alpha,
+                               void* firsts, void* nsamp, SlabParams p,
+                               void* stream) {
   if (p.H <= 0 || p.W <= 0) return 0;
   if (p.H % kTileH || p.W % kTileW) return (int)cudaErrorInvalidValue;
-  const dim3 block(kTileW, kRows);
-  const dim3 grid(p.W / kTileW, p.H / kTileH);
+  const dim3 block(kTileW, kRowsPerBlock);
+  const dim3 grid(p.W / kTileW, p.H / kRowsPerBlock);
   const cudaStream_t s = (cudaStream_t)stream;
 #define VKV_LAUNCH(GRAD)                                                    \
   sweep_slabs_kernel<GRAD><<<grid, block, 0, s>>>(                          \
       (const float*)wu, (const float*)wv, (const float*)s_lo,              \
       (const float*)s_hi, (const float*)kappa, (const uint8_t*)cov,        \
-      (const uint8_t*)coarse, (const uint8_t*)vol, (const uint8_t*)grad,   \
-      (const int*)meta, (float*)lum, (float*)alpha, (float*)firsts,        \
-      (int*)nsamp, p)
+      (const uint8_t*)vol, (const uint8_t*)grad, (const int*)meta,         \
+      (const int*)cnt, (const int16_t*)lst, (float*)lum, (float*)alpha,    \
+      (float*)firsts, (int*)nsamp, p)
   if (p.use_gradient) VKV_LAUNCH(true); else VKV_LAUNCH(false);
 #undef VKV_LAUNCH
   return (int)cudaGetLastError();

@@ -13,9 +13,14 @@ to the TPU kernel's.
 * ``grid_fields`` and ``brick_inputs`` (the coarse leap map, the tight
   skip map and the occupied brick range) are plain PyTorch, as the JAX
   package left them to XLA.
-* ``sweep_bricks_kernel`` launches K1 (csrc/sweep_bricks.cu) for CUDA
-  tensors and runs ``sweep_bricks_reference``, its plain version, for CPU
-  tensors.
+* ``sweep_bricks_kernel`` is K1 (csrc/sweep_bricks.cu) in two launches:
+  ``brick_walk`` writes each tile's visited bricks to a list, and
+  ``sweep_bricks_composite`` composites every pixel over its tile's list.
+  For CPU tensors each runs its plain version (``brick_walk_plain``,
+  ``sweep_bricks_composite_plain``). ``sweep_bricks_reference`` is the
+  plain sweep with the two interleaved, as the TPU kernel runs them: the
+  split changes no output bit, because a tile's walk never depends on its
+  pixels' state.
 * ``sweep_bricks`` is the whole stage: inputs, K1, and the colour / depth
   epilogue.
 
@@ -57,7 +62,7 @@ _BIG = 1e30
 _INV255 = float(np.float32(1.0 / 255.0))
 _INV256 = 1.0 / 256.0
 
-LAUNCHES = {"sweep_bricks": 0}
+LAUNCHES = {"sweep_bricks": 0, "brick_walk": 0}
 
 
 def _f32(x) -> float:
@@ -310,164 +315,297 @@ def mark_reads(sectors: torch.Tensor, src: torch.Tensor, idxs, need,
             sectors[(i + plane * src.element_size()) // 32] = True
 
 
-def sweep_bricks_reference(inp: BrickInputs, reads: dict | None = None):
-    """Plain PyTorch version of K1: (lum, alpha, firsts, nsamp), each
-    (H, W). Runs every tile in lock-step, each with its own brick walk and
-    masks; the arithmetic is the kernel's, operation for operation.
+@dataclasses.dataclass(frozen=True)
+class TileLists:
+    """What a sweep's walk hands its composite: for every tile (row-major
+    over the grid of tiles) the number of bricks (K1) or slabs (K7) it
+    visits, ``cnt`` (T,) int32, and their indices in sweep order, ``lst``
+    (T, cap) int16 (entries past ``cnt`` are undefined)."""
+    cnt: torch.Tensor
+    lst: torch.Tensor
 
-    ``reads`` (``{"vol": sector_map(inp.vol), "grad": ...}``), when given,
-    gets the sectors this run's samples need: the volume's taps of every
-    sample in range, the gradient map's of those whose intensity alpha is
-    above 0 (the kernel skips the others' gradient taps)."""
-    p = inp.params
-    H, W, th = p["H"], p["W"], p["tile_h"]
-    Np, Sv, Su, n_slabs = p["Np"], p["Sv"], p["Su"], p["n_slabs"]
-    bp_p, CV, CU, CVp, mp = p["bp_p"], p["CV"], p["CU"], p["CVp"], p["mp"]
-    sgn, ert = p["sgn"], bool(p["ert"])
-    ds = p["ds"]
-    f32 = np.float32
-    dev = inp.vol.device
-    nty, ntx = H // th, W // TILE_W
-    T = nty * ntx
+    def entries(self) -> torch.Tensor:
+        """The defined entries, tile after tile (for comparing two walks)."""
+        cap = self.lst.shape[1]
+        keep = (torch.arange(cap, device=self.lst.device)[None, :]
+                < self.cnt.to(torch.int64)[:, None])
+        return self.lst[keep]
 
-    def tiles(a):
-        return (a.reshape(nty, th, ntx, TILE_W).permute(0, 2, 1, 3)
-                .reshape(T, th, TILE_W))
 
-    wu_t, wv_t = tiles(inp.wu), tiles(inp.wv)
-    s_lo, s_hi, kap, cov = (tiles(inp.s_lo), tiles(inp.s_hi),
-                            tiles(inp.kappa), tiles(inp.cov))
-    wu_c = wu_t[:, 0, :]          # the u math uses tile row 0 (separable)
-    wv_r = wv_t[:, :, 0]          # the v math uses tile column 0
+class _PlainTiles:
+    """What the two plain sweeps (K1, K7) share, vectorised over tiles: the
+    inputs cut into ``th`` × 128 tiles, each tile's covered rays' reduced
+    bounds and leap rate, its walk range over candidates (bricks or slabs)
+    and ``next_valid`` over a subclass's ``probe``, and the compositing
+    state. The arithmetic is the kernels', operation for operation.
+    ``reads``: see ``sweep_bricks_reference``."""
 
-    def cov_min(a):
-        return torch.where(cov, a, _BIG).amin(dim=(1, 2))
+    def __init__(self, inp, th: int, reads: dict | None = None):
+        self.inp, self.reads = inp, reads
+        self.p = p = inp.params
+        self.n_slabs, self.ert = p["n_slabs"], bool(p["ert"])
+        nty, ntx = p["H"] // th, p["W"] // TILE_W
+        self.shape, self.T = (nty, ntx, th), nty * ntx
 
-    def cov_max(a):
-        return torch.where(cov, a, -_BIG).amax(dim=(1, 2))
+        def tiles(a):
+            return (a.reshape(nty, th, ntx, TILE_W).permute(0, 2, 1, 3)
+                    .reshape(self.T, th, TILE_W))
 
-    s_lo_t, s_hi_t = cov_min(s_lo), cov_max(s_hi)
-    wu_min, wu_max = cov_min(wu_t), cov_max(wu_t)
-    wv_min, wv_max = cov_min(wv_t), cov_max(wv_t)
-    any_cov = cov.reshape(T, -1).any(dim=1)
+        self.wu_t, self.wv_t = tiles(inp.wu), tiles(inp.wv)
+        self.s_lo, self.s_hi, self.kap, self.cov = (
+            tiles(inp.s_lo), tiles(inp.s_hi), tiles(inp.kappa),
+            tiles(inp.cov))
+        cov = self.cov
 
-    n_bricks = -(-n_slabs // BRICK)
-    kb_occ_lo, kb_occ_hi = (int(v) for v in inp.kb_occ.tolist())
-    k_a = _f2i(torch.floor(s_lo_t / ds - 0.5))
-    k_b = _f2i(torch.ceil(s_hi_t / ds - 0.5))
-    kb_a = torch.clamp(torch.clamp(k_a // BRICK, min=kb_occ_lo), 0, n_bricks - 1)
-    kb_b = torch.clamp(torch.clamp(k_b // BRICK, max=kb_occ_hi), 0, n_bricks - 1)
-    if sgn > 0:
-        kb_begin, kb_end = kb_a, kb_b + 1
-        in_range = lambda kb: kb < kb_end
-    else:
-        kb_begin, kb_end = kb_b, kb_a - 1
-        in_range = lambda kb: kb > kb_end
+        def cov_min(a):
+            return torch.where(cov, a, _BIG).amin(dim=(1, 2))
 
-    slab_s = lambda k: (k.to(torch.float32) + 0.5) * ds
-    aligned, use_gradient = bool(p["aligned"]), bool(p["use_gradient"])
+        def cov_max(a):
+            return torch.where(cov, a, -_BIG).amax(dim=(1, 2))
 
-    def k0_of(k):
-        if aligned:
+        self.s_lo_t, self.s_hi_t = cov_min(self.s_lo), cov_max(self.s_hi)
+        self.wu_min, self.wu_max = cov_min(self.wu_t), cov_max(self.wu_t)
+        self.wv_min, self.wv_max = cov_min(self.wv_t), cov_max(self.wv_t)
+        self.any_cov = cov.reshape(self.T, -1).any(dim=1)
+        self.rate = torch.clamp(torch.maximum(
+            torch.maximum(self.wu_min.abs(), self.wu_max.abs())
+            * p["drift_u"],
+            torch.maximum(self.wv_min.abs(), self.wv_max.abs())
+            * p["drift_v"]), min=1.0)
+        f32 = np.float32
+        self.inv_dsNp = float(f32(1.0) / (f32(p["ds"]) * f32(p["Np"])))
+        dev = inp.vol.device
+        self.rows16 = torch.arange(16, device=dev)
+        self.cols = torch.arange(TILE_W, device=dev)
+
+    def span(self, lo, hi) -> None:
+        """Each tile walks candidates lo..hi in sweep order (self.sgn)."""
+        if self.sgn > 0:
+            self.begin, self.end = lo, hi + 1
+        else:
+            self.begin, self.end = hi, lo - 1
+
+    def in_range(self, k):
+        return k < self.end if self.sgn > 0 else k > self.end
+
+    def slab_s(self, k):
+        return (k.to(torch.float32) + 0.5) * self.p["ds"]
+
+    def next_valid(self, k, todo, stats: dict | None = None):
+        """First candidate at or after k (in sweep order) of each ``todo``
+        tile whose window holds an occupied cell, leaping over empty space.
+        ``stats`` adds up the windows the walk reduces (``note_windows``)."""
+        todo = todo & self.in_range(k)
+        while bool(todo.any()):
+            occupied, target = self.probe(k, todo, stats)
+            leap = todo & ~occupied
+            k = torch.where(leap, target, k)
+            todo = leap & self.in_range(k)
+        return k
+
+    def start(self):
+        """Zero state: (lum, alpha, firsts, nsamp), tiled."""
+        T, th = self.T, self.shape[2]
+        dev = self.inp.vol.device
+        lum = torch.zeros((T, th, TILE_W), dtype=torch.float32, device=dev)
+        return (lum, torch.zeros_like(lum), torch.full_like(lum, 2.0),
+                torch.zeros((T, th, TILE_W), dtype=torch.int32, device=dev))
+
+    def live(self, alpha):
+        """Tiles with a covered pixel that can still take a sample."""
+        return (self.cov & (alpha <= 0.99)).reshape(self.T, -1).any(dim=1)
+
+    def finish(self, state):
+        """The state untiled: (lum, alpha, firsts, nsamp), each (H, W)."""
+        nty, ntx, th = self.shape
+        return tuple(a.reshape(nty, ntx, th, TILE_W).permute(0, 2, 1, 3)
+                     .reshape(nty * th, ntx * TILE_W) for a in state)
+
+
+def _interleaved(w: _PlainTiles):
+    """A plain sweep with walk and compositing interleaved, as the TPU
+    kernels run them: every tile in lock-step, a tile leaving the walk when
+    none of its covered pixels can take another sample (ERT) and skipping
+    a candidate none of its pixels samples."""
+    state = w.start()
+    k = w.next_valid(w.begin, w.any_cov)
+    while True:
+        active = w.any_cov & w.in_range(k)
+        if w.ert:
+            active = active & w.live(state[1])
+        if not bool(active.any()):
+            break
+        sel = active & w.work(k, state[1])
+        if bool(sel.any()):
+            state = w.sample(k, sel, state)
+        k = torch.where(active, w.next_valid(k + w.sgn, active), k)
+    return w.finish(state)
+
+
+def _walk_lists(w: _PlainTiles, stats: dict | None) -> TileLists:
+    """A plain walk: each tile's visited candidates in sweep order (every
+    one the walk lands on in its range, whatever the pixels' opacity)."""
+    dev = w.inp.vol.device
+    lst = torch.zeros((w.T, w.cap), dtype=torch.int16, device=dev)
+    n = torch.zeros(w.T, dtype=torch.int64, device=dev)
+    k = w.next_valid(w.begin, w.any_cov, stats)
+    while True:
+        active = w.any_cov & w.in_range(k)
+        if not bool(active.any()):
+            return TileLists(cnt=n.to(torch.int32), lst=lst)
+        rows = active.nonzero()[:, 0]
+        lst[rows, n[rows]] = k[rows].to(torch.int16)
+        n = n + active.to(torch.int64)
+        k = torch.where(active, w.next_valid(k + w.sgn, active, stats), k)
+
+
+def _composite_lists(w: _PlainTiles, walk: TileLists):
+    """A plain composite over a walk's lists: entry i of every tile in
+    lock-step."""
+    state = w.start()
+    cnt = walk.cnt.to(torch.int64)
+    for i in range(int(cnt.max()) if w.T else 0):
+        if w.ert and not bool(w.live(state[1]).any()):
+            break
+        listed = i < cnt
+        k = torch.where(listed, walk.lst[:, i].to(torch.int64), 0)
+        sel = listed & w.work(k, state[1])
+        if bool(sel.any()):
+            state = w.sample(k, sel, state)
+    return w.finish(state)
+
+
+class _PlainBricks(_PlainTiles):
+    """The plain version of K1 (candidates: 8-slab bricks): the brick walk
+    (tight cskip window, then the coarse window's leap) and the sampling of
+    one brick."""
+
+    def __init__(self, inp: BrickInputs, reads: dict | None = None):
+        super().__init__(inp, inp.params["tile_h"], reads)
+        p = self.p
+        self.sgn = p["sgn"]
+        self.aligned = bool(p["aligned"])
+        self.use_gradient = bool(p["use_gradient"])
+        self.wu_c = self.wu_t[:, 0, :]   # the u math uses tile row 0
+        self.wv_r = self.wv_t[:, :, 0]   # the v math uses tile column 0
+        self.cap = n_bricks = -(-self.n_slabs // BRICK)
+        ds = p["ds"]
+        kb_occ_lo, kb_occ_hi = (int(v) for v in inp.kb_occ.tolist())
+        k_a = _f2i(torch.floor(self.s_lo_t / ds - 0.5))
+        k_b = _f2i(torch.ceil(self.s_hi_t / ds - 0.5))
+        self.span(
+            torch.clamp(torch.clamp(k_a // BRICK, min=kb_occ_lo), 0,
+                        n_bricks - 1),
+            torch.clamp(torch.clamp(k_b // BRICK, max=kb_occ_hi), 0,
+                        n_bricks - 1))
+        f32 = np.float32
+        self.d_pair = int(np.ceil(f32(2.0) * f32(p["bp_p"])
+                                  * f32(self.inv_dsNp)))
+
+    def k0_of(self, k):
+        Np = self.p["Np"]
+        if self.aligned:
             return k.clamp(0, Np - 2)
-        return _f2i(torch.floor(slab_s(k) * float(Np) - 0.5)).clamp(0, Np - 2)
-    rate = torch.clamp(torch.maximum(
-        torch.maximum(wu_min.abs(), wu_max.abs()) * p["drift_u"],
-        torch.maximum(wv_min.abs(), wv_max.abs()) * p["drift_v"]), min=1.0)
-    inv_dsNp = float(f32(1.0) / (f32(ds) * f32(Np)))
-    d_pair = int(np.ceil(f32(2.0) * f32(bp_p) * f32(inv_dsNp)))
+        return _f2i(torch.floor(self.slab_s(k) * float(Np) - 0.5)).clamp(
+            0, Np - 2)
 
-    def qu_bounds2(k1, k2):
-        t1 = slab_s(k1) - p["o_p"]
-        t2 = slab_s(k2) - p["o_p"]
+    def qu_bounds2(self, k1, k2):
+        p = self.p
+        t1 = self.slab_s(k1) - p["o_p"]
+        t2 = self.slab_s(k2) - p["o_p"]
+        wu_min, wu_max, wv_min, wv_max = (self.wu_min, self.wu_max,
+                                          self.wv_min, self.wv_max)
         a1, b1, a2, b2 = wu_min * t1, wu_max * t1, wu_min * t2, wu_max * t2
         c1, e1, c2, e2 = wv_min * t1, wv_max * t1, wv_min * t2, wv_max * t2
         ulo = torch.minimum(torch.minimum(a1, b1), torch.minimum(a2, b2))
         uhi = torch.maximum(torch.maximum(a1, b1), torch.maximum(a2, b2))
         vlo = torch.minimum(torch.minimum(c1, e1), torch.minimum(c2, e2))
         vhi = torch.maximum(torch.maximum(c1, e1), torch.maximum(c2, e2))
-        return ((p["o_u"] + ulo) * float(Su) - 0.5,
-                (p["o_u"] + uhi) * float(Su) - 0.5,
-                (p["o_v"] + vlo) * float(Sv) - 0.5,
-                (p["o_v"] + vhi) * float(Sv) - 0.5)
+        return ((p["o_u"] + ulo) * float(p["Su"]) - 0.5,
+                (p["o_u"] + uhi) * float(p["Su"]) - 0.5,
+                (p["o_v"] + vlo) * float(p["Sv"]) - 0.5,
+                (p["o_v"] + vhi) * float(p["Sv"]) - 0.5)
 
-    rows16 = torch.arange(16, device=dev)
-    cols = torch.arange(TILE_W, device=dev)
-
-    def win_min(ref, m, qu_lo, qu_hi, qv_lo, qv_hi):
-        """Min of ref[m] over the dilated cell window of each tile; 0 when
-        the window is taller than the 16-row view."""
-        iv, iu = p["inv_cvox_v"], p["inv_cvox_u"]
-        cv_lo = _f2i(torch.floor((qv_lo - 1.0) * iv)).clamp(0, CV - 1)
-        cv_hi = _f2i(torch.floor((qv_hi + 2.0) * iv)).clamp(0, CV - 1)
-        cu_lo = _f2i(torch.floor((qu_lo - 1.0) * iu)).clamp(0, CU - 1)
-        cu_hi = _f2i(torch.floor((qu_hi + 2.0) * iu)).clamp(0, CU - 1)
-        cv8 = ((cv_lo // 8) * 8).clamp(0, max(CVp - 16, 0))
-        rows = cv8[:, None] + rows16[None, :]
-        block = ref[m[:, None, None], rows[:, :, None], cols[None, None, :]]
-        mask = (((rows >= cv_lo[:, None]) & (rows <= cv_hi[:, None]))[:, :, None]
-                & ((cols[None, :] >= cu_lo[:, None])
-                   & (cols[None, :] <= cu_hi[:, None]))[:, None, :])
-        d = torch.where(mask, block.to(torch.int64), 255).amin(dim=(1, 2))
-        return torch.where(cv_hi > cv8 + 15, 0, d)
-
-    def brick_window(kb):
+    def brick_window(self, kb, todo=None, stats: dict | None = None):
+        """(occupied by the tight window, leap distance of the coarse
+        window) of brick kb of each tile. ``stats`` counts the tight window
+        of each ``todo`` tile and the coarse window of each that leaps."""
+        n_slabs, d_pair, bp_p = self.n_slabs, self.d_pair, self.p["bp_p"]
+        mp = self.p["mp"]
         k1 = kb * BRICK
         k2 = torch.clamp(k1 + BRICK - 1, max=n_slabs - 1)
-        if sgn > 0:
+        if self.sgn > 0:
             ka, kc, k_front = k1, (k2 + d_pair).clamp(0, n_slabs - 1), k1
         else:
             ka, kc, k_front = (k1 - d_pair).clamp(0, n_slabs - 1), k2, k2
-        m_lo = (k0_of(k1) // bp_p).clamp(0, mp - 1)
-        m0 = (k0_of(k_front) // bp_p).clamp(0, mp - 1)
-        occupied = win_min(inp.cskip, m_lo, *qu_bounds2(k1, k2)) == 0
-        d = win_min(inp.coarse, m0, *qu_bounds2(ka, kc))
+        m_lo = (self.k0_of(k1) // bp_p).clamp(0, mp - 1)
+        m0 = (self.k0_of(k_front) // bp_p).clamp(0, mp - 1)
+        occupied = window_min(
+            self.p, self.inp.cskip, m_lo, *self.qu_bounds2(k1, k2),
+            self.rows16, self.cols,
+            None if stats is None else (stats, "cskip", todo)) == 0
+        d = window_min(self.p, self.inp.coarse, m0, *self.qu_bounds2(ka, kc),
+                       self.rows16, self.cols,
+                       None if stats is None else (stats, "coarse",
+                                                   todo & ~occupied))
         return occupied, d
 
-    def leap_target(kb, d):
-        P = _f2i(torch.floor((d.to(torch.float32) - 1.0) / rate))
-        if sgn > 0:
-            c0 = k0_of(kb * BRICK) // bp_p
+    def leap_target(self, kb, d):
+        bp_p, inv_dsNp = self.p["bp_p"], self.inv_dsNp
+        P = _f2i(torch.floor((d.to(torch.float32) - 1.0) / self.rate))
+        if self.sgn > 0:
+            c0 = self.k0_of(kb * BRICK) // bp_p
             k_tgt = _f2i(torch.floor(
                 (((c0 + P + 1) * bp_p - 2).to(torch.float32) + 1.5)
                 * inv_dsNp - 0.5))
             return torch.maximum(kb + 1, k_tgt // BRICK)
-        k2 = torch.clamp(kb * BRICK + BRICK - 1, max=n_slabs - 1)
-        c0 = k0_of(k2) // bp_p
+        k2 = torch.clamp(kb * BRICK + BRICK - 1, max=self.n_slabs - 1)
+        c0 = self.k0_of(k2) // bp_p
         k_tgt = _f2i(torch.ceil(
             (((c0 - P) * bp_p).to(torch.float32) + 0.5) * inv_dsNp - 0.5)) - 1
         return torch.minimum(kb - 1, k_tgt // BRICK)
 
-    def next_valid(kb, todo):
-        todo = todo & in_range(kb)
-        while bool(todo.any()):
-            occupied, d = brick_window(kb)
-            kb = torch.where(todo & ~occupied, leap_target(kb, d), kb)
-            todo = todo & ~occupied & in_range(kb)
-        return kb
+    def probe(self, kb, todo=None, stats: dict | None = None):
+        """(occupied by the tight window, the leap's target) of brick kb of
+        each tile."""
+        occupied, d = self.brick_window(kb, todo, stats)
+        return occupied, self.leap_target(kb, d)
 
-    f = torch.float32
-    lum = torch.zeros((T, th, TILE_W), dtype=f, device=dev)
-    alpha = torch.zeros_like(lum)
-    firsts = torch.full_like(lum, 2.0)
-    nsamp = torch.zeros((T, th, TILE_W), dtype=torch.int32, device=dev)
-    vol = inp.vol.reshape(-1)
-    grad = inp.grad.reshape(-1) if use_gradient else None
+    def work(self, kb, alpha):
+        """Tiles with a pixel that samples brick kb."""
+        first = self.slab_s(kb * BRICK)
+        last = self.slab_s(torch.clamp(kb * BRICK + BRICK - 1,
+                                       max=self.n_slabs - 1))
+        sb_lo = torch.minimum(first, last)[:, None, None]
+        sb_hi = torch.maximum(first, last)[:, None, None]
+        work = self.cov & (sb_hi >= self.s_lo) & (sb_lo <= self.s_hi)
+        if self.ert:
+            work = work & (alpha <= 0.99)
+        return work.reshape(self.T, -1).any(dim=1)
 
-    def sample_brick(kb, sel, lum, alpha, firsts, nsamp):
-        js = range(BRICK) if sgn > 0 else range(BRICK - 1, -1, -1)
+    def sample(self, kb, sel, state):
+        """Composites brick kb of each ``sel`` tile into ``state``."""
+        lum, alpha, firsts, nsamp = state
+        p, inp, reads = self.p, self.inp, self.reads
+        Np, Sv, Su, n_slabs = p["Np"], p["Sv"], p["Su"], self.n_slabs
+        cov, s_lo, s_hi, kap = self.cov, self.s_lo, self.s_hi, self.kap
+        aligned, use_gradient = self.aligned, self.use_gradient
+        f = torch.float32
+        vol = inp.vol.reshape(-1)
+        grad = inp.grad.reshape(-1) if use_gradient else None
+        js = range(BRICK) if self.sgn > 0 else range(BRICK - 1, -1, -1)
         for j in js:
             k = kb * BRICK + j
-            s = slab_s(k)
+            s = self.slab_s(k)
             t = s - p["o_p"]
             s3 = s[:, None, None]
             in_rng = (cov & (s3 >= s_lo) & (s3 <= s_hi)
                       & (sel & (k < n_slabs))[:, None, None])
-            if ert:
+            if self.ert:
                 in_rng = in_rng & (alpha <= 0.99)
-            qu = (p["o_u"] + wu_c * t[:, None]) * float(Su) - 0.5
-            qv = torch.clamp((p["o_v"] + wv_r * t[:, None]) * float(Sv) - 0.5,
-                             0.0, float(Sv) - 1.0)
+            qu = (p["o_u"] + self.wu_c * t[:, None]) * float(Su) - 0.5
+            qv = torch.clamp((p["o_v"] + self.wv_r * t[:, None]) * float(Sv)
+                             - 0.5, 0.0, float(Sv) - 1.0)
             flu = torch.floor(qu)
             iu0 = _f2i(flu).clamp(0, Su - 1)
             iu1 = (iu0 + 1).clamp(max=Su - 1)
@@ -479,7 +617,7 @@ def sweep_bricks_reference(inp: BrickInputs, reads: dict | None = None):
             w1 = torch.clamp(1.0 - (qv - (r0 + 1).to(f)).abs(),
                              min=0.0)[:, :, None]
             if aligned:
-                kk0, fp = k0_of(k), None
+                kk0, fp = self.k0_of(k), None
             else:
                 zp = s * float(Np) - 0.5
                 kk0 = _f2i(torch.floor(zp)).clamp(0, Np - 2)
@@ -502,8 +640,9 @@ def sweep_bricks_reference(inp: BrickInputs, reads: dict | None = None):
                 c1 = v10 + (v11 - v10) * fu
                 return (w0 * c0 + w1 * c1) * _INV255
 
-            a_tf = torch.clamp((bilinear(vol) - p["imin"]) * p["iinv"],
-                               0.0, 1.0)
+            a_int = torch.clamp((bilinear(vol) - p["imin"]) * p["iinv"],
+                                0.0, 1.0)
+            a_tf = a_int
             if reads is not None:
                 idxs = [base + r[:, :, None] * Su + iu[:, None, :]
                         for r in (r0, r1) for iu in (iu0, iu1)]
@@ -511,19 +650,20 @@ def sweep_bricks_reference(inp: BrickInputs, reads: dict | None = None):
                 mark_reads(reads["vol"], vol, idxs, in_rng, lerp)
                 if use_gradient:
                     mark_reads(reads["grad"], grad, idxs,
-                               in_rng & (a_tf > 0.0), lerp)
+                               in_rng & (a_int > 0.0), lerp)
             if use_gradient:
                 a_tf = a_tf * torch.clamp(
                     (bilinear(grad) - p["gmin"]) * p["ginv"], 0.0, 1.0)
             a_corr = torch.clamp(
                 p["vaf"] * (1.0 - torch.pow(1.0 - a_tf, kap)), 0.0, 1.0)
             contrib = in_rng & (a_tf > 0.0)
+            count_passed(reads, in_rng & (a_int > 0.0), contrib)
             one_m = 1.0 - alpha
             lum = torch.where(contrib, lum + one_m * a_tf * a_corr, lum)
             new_alpha = torch.where(contrib, alpha + one_m * a_corr, alpha)
             hit = contrib & (a_corr > 0.0) & (firsts > 1.5)
             firsts = torch.where(hit, s3.expand_as(firsts), firsts)
-            if ert:
+            if self.ert:
                 new_alpha = torch.where(contrib & (new_alpha > 0.99), 1.0,
                                         new_alpha)
             alpha = new_alpha
@@ -531,54 +671,155 @@ def sweep_bricks_reference(inp: BrickInputs, reads: dict | None = None):
                 nsamp = nsamp + in_rng.to(torch.int32)
         return lum, alpha, firsts, nsamp
 
-    kb = next_valid(kb_begin, any_cov)
-    while True:
-        active = any_cov & in_range(kb)
-        if ert:
-            active = active & (cov & (alpha <= 0.99)).reshape(T, -1).any(dim=1)
-        if not bool(active.any()):
-            break
-        first = slab_s(kb * BRICK)
-        last = slab_s(torch.clamp(kb * BRICK + BRICK - 1, max=n_slabs - 1))
-        sb_lo = torch.minimum(first, last)[:, None, None]
-        sb_hi = torch.maximum(first, last)[:, None, None]
-        work = cov & (sb_hi >= s_lo) & (sb_lo <= s_hi)
-        if ert:
-            work = work & (alpha <= 0.99)
-        sel = active & work.reshape(T, -1).any(dim=1)
-        if bool(sel.any()):
-            lum, alpha, firsts, nsamp = sample_brick(kb, sel, lum, alpha,
-                                                     firsts, nsamp)
-        kb = torch.where(active, next_valid(kb + sgn, active), kb)
 
-    def untile(a):
-        return (a.reshape(nty, ntx, th, TILE_W).permute(0, 2, 1, 3)
-                .reshape(H, W))
+def window_min(p: dict, ref: torch.Tensor, m, qu_lo, qu_hi, qv_lo, qv_hi,
+               rows16, cols, seen=None):
+    """Min of ref[m] over each tile's dilated cell window (texel rect
+    [qu_lo, qu_hi] × [qv_lo, qv_hi]); 0 when the window is taller than the
+    TPU kernels' 16-row view (both sweeps' walks). ``seen``, when given, is
+    (stats, the map's name, the tiles whose window counts): see
+    ``note_windows``."""
+    CV, CU, CVp = p["CV"], p["CU"], p["CVp"]
+    iv, iu = p["inv_cvox_v"], p["inv_cvox_u"]
+    cv_lo = _f2i(torch.floor((qv_lo - 1.0) * iv)).clamp(0, CV - 1)
+    cv_hi = _f2i(torch.floor((qv_hi + 2.0) * iv)).clamp(0, CV - 1)
+    cu_lo = _f2i(torch.floor((qu_lo - 1.0) * iu)).clamp(0, CU - 1)
+    cu_hi = _f2i(torch.floor((qu_hi + 2.0) * iu)).clamp(0, CU - 1)
+    cv8 = ((cv_lo // 8) * 8).clamp(0, max(CVp - 16, 0))
+    rows = cv8[:, None] + rows16[None, :]
+    block = ref[m[:, None, None], rows[:, :, None], cols[None, None, :]]
+    mask = (((rows >= cv_lo[:, None]) & (rows <= cv_hi[:, None]))[:, :, None]
+            & ((cols[None, :] >= cu_lo[:, None])
+               & (cols[None, :] <= cu_hi[:, None]))[:, None, :])
+    d = torch.where(mask, block.to(torch.int64), 255).amin(dim=(1, 2))
+    tall = cv_hi > cv8 + 15
+    if seen is not None:
+        note_windows(*seen, m, rows, cv_lo, cv_hi, cu_lo, cu_hi, tall, CVp)
+    return torch.where(tall, 0, d)
 
-    return untile(lum), untile(alpha), untile(firsts), untile(nsamp)
+
+def note_windows(stats: dict, name: str, counted, m, rows, cv_lo, cv_hi,
+                 cu_lo, cu_hi, tall, CVp: int) -> None:
+    """Adds the windows of the ``counted`` tiles to a walk's ``stats``:
+    "windows", their number; "words", the 4-byte words the walk kernels'
+    ``window_min`` reads for them (none for a window taller than the
+    view); and, where ``stats[name]`` is a ``sector_map`` of that map, the
+    32-byte sectors holding those words (the bytes side of the walks'
+    bound)."""
+    stats["windows"] = stats.get("windows", 0) + int(counted.sum())
+    read = counted & ~tall
+    words = (cv_hi - cv_lo + 1) * (cu_hi // 4 - cu_lo // 4 + 1)
+    stats["words"] = stats.get("words", 0) + int(words[read].sum())
+    sectors = stats.get(name)
+    if sectors is None:
+        return
+    per_row = TILE_W // 32
+    s = torch.arange(per_row, device=rows.device)
+    in_rows = (read[:, None] & (rows >= cv_lo[:, None])
+               & (rows <= cv_hi[:, None]))
+    in_cols = (s >= (cu_lo // 32)[:, None]) & (s <= (cu_hi // 32)[:, None])
+    idx = ((m[:, None] * CVp + rows) * per_row)[:, :, None] + s
+    sectors[idx[in_rows[:, :, None] & in_cols[:, None, :]]] = True
 
 
-def sweep_bricks_kernel(inp: BrickInputs):
-    """K1: (lum, alpha, firsts, nsamp). CPU tensors run the plain version;
-    CUDA tensors launch the kernel (or raise)."""
+def count_passed(reads: dict | None, past_intensity, composited) -> None:
+    """Adds to ``reads["passed"]``, where the plain sweep was given one,
+    the samples whose intensity alpha is above 0 (the kernels take their
+    gradient taps) and those that composite (alpha above 0 after the
+    gradient TF: the kernels take ``powf`` and composite only these)."""
+    if reads is not None and "passed" in reads:
+        reads["passed"] += torch.stack([past_intensity.sum(),
+                                        composited.sum()]).to(torch.int64)
+
+
+def sweep_bricks_reference(inp: BrickInputs, reads: dict | None = None):
+    """Plain PyTorch version of K1 with its walk and compositing
+    interleaved, as the TPU kernel runs them (``_interleaved``): (lum,
+    alpha, firsts, nsamp), each (H, W). The independent check of the split
+    that K1 runs (``brick_walk`` + ``sweep_bricks_composite``).
+
+    ``reads`` (``{"vol": sector_map(inp.vol), "grad": ...}``), when given,
+    gets the sectors this run's samples need: the volume's taps of every
+    sample in range, the gradient map's of those whose intensity alpha is
+    above 0 (the kernel skips the others' gradient taps); with a
+    ``"passed"`` entry (``torch.zeros(2, dtype=torch.int64)``), the counts
+    of ``count_passed``."""
+    return _interleaved(_PlainBricks(inp, reads))
+
+
+def brick_walk_plain(inp: BrickInputs, stats: dict | None = None
+                     ) -> TileLists:
+    """Plain version of K1's walk: each tile's visited bricks in sweep
+    order. ``stats`` (``note_windows``; sector maps under "cskip" and
+    "coarse"): the windows the walk reduces, a tight one per step and a
+    coarse one per leap."""
+    return _walk_lists(_PlainBricks(inp), stats)
+
+
+def sweep_bricks_composite_plain(inp: BrickInputs, walk: TileLists):
+    """Plain version of K1's compositing over a walk's lists: (lum, alpha,
+    firsts, nsamp), each (H, W)."""
+    return _composite_lists(_PlainBricks(inp), walk)
+
+
+def tile_lists(n_tiles: int, cap: int, device) -> TileLists:
+    """Uninitialised lists for a walk kernel to fill (int16 indices)."""
+    if cap > np.iinfo(np.int16).max:
+        raise ValueError(f"{cap} bricks or slabs exceed the int16 lists")
+    return TileLists(
+        cnt=torch.empty(n_tiles, dtype=torch.int32, device=device),
+        lst=torch.empty((n_tiles, cap), dtype=torch.int16, device=device))
+
+
+def brick_walk(inp: BrickInputs) -> TileLists:
+    """K1's walk: each tile's visited bricks. CPU tensors run the plain
+    version; CUDA tensors launch the kernel (or raise)."""
     if inp.vol.device.type == "cpu":
-        return sweep_bricks_reference(inp)
+        return brick_walk_plain(inp)
     p = inp.params
     H, W = p["H"], p["W"]
-    for name in ("wu", "wv", "s_lo", "s_hi", "kappa"):
+    for name in ("wu", "wv", "s_lo", "s_hi"):
         cuda_build.require_cuda(name, getattr(inp, name), torch.float32,
                                 (H, W))
     cuda_build.require_cuda("cov", inp.cov, torch.bool, (H, W))
     for name in ("coarse", "cskip"):
         cuda_build.require_cuda(name, getattr(inp, name), torch.uint8,
                                 (p["mp"], p["CVp"], TILE_W))
+        cuda_build.require_aligned(name, getattr(inp, name), 4)
+    cuda_build.require_cuda("kb_occ", inp.kb_occ, torch.int32, (2,))
+    lists = tile_lists(H // p["tile_h"] * (W // TILE_W),
+                       -(-p["n_slabs"] // BRICK), inp.vol.device)
+    ptrs = [t.data_ptr() for t in (
+        inp.wu, inp.wv, inp.s_lo, inp.s_hi, inp.cov, inp.coarse, inp.cskip,
+        inp.kb_occ, lists.cnt, lists.lst)]
+    cuda_build.check(cuda_build.load_kernels().vkv_brick_walk(
+        *ptrs, cuda_build.BrickParams(**p), cuda_build.stream()),
+        "brick_walk")
+    LAUNCHES["brick_walk"] += 1
+    return lists
+
+
+def sweep_bricks_composite(inp: BrickInputs, walk: TileLists):
+    """K1's compositing over the walk's lists: (lum, alpha, firsts,
+    nsamp). CPU tensors run the plain version; CUDA tensors launch the
+    kernel (or raise)."""
+    if inp.vol.device.type == "cpu":
+        return sweep_bricks_composite_plain(inp, walk)
+    p = inp.params
+    H, W = p["H"], p["W"]
+    for name in ("wu", "wv", "s_lo", "s_hi", "kappa"):
+        cuda_build.require_cuda(name, getattr(inp, name), torch.float32,
+                                (H, W))
+    cuda_build.require_cuda("cov", inp.cov, torch.bool, (H, W))
     cuda_build.require_cuda("vol", inp.vol, torch.uint8,
                             (p["Np"], p["Sv"], p["Su"]))
     if p["use_gradient"]:
         cuda_build.require_cuda("grad", inp.grad, torch.uint8,
                                 (p["Np"], p["Sv"], p["Su"]))
-    cuda_build.require_cuda("kb_occ", inp.kb_occ, torch.int32, (2,))
-    lib = cuda_build.load_kernels()
+    n_tiles = H // p["tile_h"] * (W // TILE_W)
+    cuda_build.require_cuda("cnt", walk.cnt, torch.int32, (n_tiles,))
+    cuda_build.require_cuda("lst", walk.lst, torch.int16,
+                            (n_tiles, -(-p["n_slabs"] // BRICK)))
     dev = inp.vol.device
     lum = torch.empty((H, W), dtype=torch.float32, device=dev)
     alpha = torch.empty_like(lum)
@@ -587,13 +828,20 @@ def sweep_bricks_kernel(inp: BrickInputs):
     # Without a gradient TF the kernel never reads ``grad``.
     grad = inp.grad if p["use_gradient"] else inp.vol
     ptrs = [t.data_ptr() for t in (
-        inp.wu, inp.wv, inp.s_lo, inp.s_hi, inp.kappa, inp.cov, inp.coarse,
-        inp.cskip, inp.vol, grad, inp.kb_occ, lum, alpha, firsts, nsamp)]
-    cuda_build.check(lib.vkv_sweep_bricks(
+        inp.wu, inp.wv, inp.s_lo, inp.s_hi, inp.kappa, inp.cov, inp.vol,
+        grad, walk.cnt, walk.lst, lum, alpha, firsts, nsamp)]
+    cuda_build.check(cuda_build.load_kernels().vkv_sweep_bricks(
         *ptrs, cuda_build.BrickParams(**p), cuda_build.stream()),
         "sweep_bricks")
     LAUNCHES["sweep_bricks"] += 1
     return lum, alpha, firsts, nsamp
+
+
+def sweep_bricks_kernel(inp: BrickInputs):
+    """K1: the walk, then the compositing over its lists: (lum, alpha,
+    firsts, nsamp). CPU tensors run the plain versions; CUDA tensors
+    launch the kernels (or raise)."""
+    return sweep_bricks_composite(inp, brick_walk(inp))
 
 
 def sweep_bricks(vol_t: torch.Tensor, occupancy_t: torch.Tensor,

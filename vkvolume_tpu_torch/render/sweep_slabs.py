@@ -16,9 +16,13 @@ run: fewer slabs than voxel planes, or no brick rect in the plan.
 * ``slab_inputs`` is the prologue of ``_sweep_pallas_jit`` (per-cell w
   slopes, slab range, κ, the coarse map, the occupied slab range and the
   launch scalars), plain PyTorch as the JAX package left it to XLA.
-* ``sweep_slabs_kernel`` launches K7 (csrc/sweep_slabs.cu) for CUDA
-  tensors and runs ``sweep_slabs_plain``, its plain version, for CPU
-  tensors.
+* ``sweep_slabs_kernel`` is K7 (csrc/sweep_slabs.cu) in two launches:
+  ``slab_walk`` writes each tile's visited slabs to a list, and
+  ``sweep_slabs_composite`` composites every pixel over its tile's list.
+  For CPU tensors each runs its plain version (``slab_walk_plain``,
+  ``sweep_slabs_composite_plain``). ``sweep_slabs_plain`` is the plain
+  sweep with the two interleaved, as the TPU kernel runs them; the split
+  changes no output bit.
 * ``sweep_slabs`` is the whole stage: inputs, K7, and the depth and
   sample-count epilogue.
 
@@ -44,14 +48,16 @@ from ..options import Test
 from ..tf.transfer_function import TFParams
 from ..utils import cuda_build
 from .ray_setup import _SLICE_AXES, FrameUniforms, RaySetup, RenderOutput
-from .sweep_bricks import CoarseMap, _f2i, _f32, mark_reads, occupied_slabs
+from .sweep_bricks import (CoarseMap, TileLists, _composite_lists, _f2i,
+                           _f32, _interleaved, _PlainTiles, _walk_lists,
+                           count_passed, mark_reads, occupied_slabs,
+                           tile_lists, window_min)
 
 TILE_H = 8
 TILE_W = 128
-_BIG = 1e30
 _INV255 = float(np.float32(1.0 / 255.0))
 
-LAUNCHES = {"sweep_slabs": 0}
+LAUNCHES = {"sweep_slabs": 0, "slab_walk": 0}
 
 
 def n_steps_max(dim_max: int, sampling_factor: float) -> float:
@@ -144,145 +150,109 @@ def slab_inputs(vol_t: torch.Tensor, occupancy_t: torch.Tensor, tf: TFParams,
         params=params)
 
 
-def sweep_slabs_plain(inp: SlabInputs, reads: dict | None = None):
-    """Plain PyTorch version of K7: (lum, alpha, firsts, nsamp), each
-    (H, W). Runs every tile in lock-step, each with its own slab walk and
-    masks; the arithmetic is the kernel's, operation for operation.
-    ``reads`` gets the sectors the samples need, as in
-    ``sweep_bricks.sweep_bricks_reference``."""
-    p = inp.params
-    H, W = p["H"], p["W"]
-    Np, Sv, Su, n_slabs = p["Np"], p["Sv"], p["Su"], p["n_slabs"]
-    bp_p, CV, CU, CVp, mp = p["bp_p"], p["CV"], p["CU"], p["CVp"], p["mp"]
-    ert, ds = bool(p["ert"]), p["ds"]
-    o_u, o_v, o_p = p["o_u"], p["o_v"], p["o_p"]
-    k_occ_lo, k_occ_hi, sgn = (int(v) for v in inp.meta.tolist())
-    f32 = np.float32
-    f = torch.float32
-    dev = inp.vol.device
-    nty, ntx = H // TILE_H, W // TILE_W
-    T = nty * ntx
+class _PlainSlabs(_PlainTiles):
+    """The plain version of K7 (candidates: slabs): the slab walk (the
+    pair-wide footprint's coarse window, the leap) and the sampling of one
+    slab."""
 
-    def tiles(a):
-        return (a.reshape(nty, TILE_H, ntx, TILE_W).permute(0, 2, 1, 3)
-                .reshape(T, TILE_H, TILE_W))
+    def __init__(self, inp: SlabInputs, reads: dict | None = None):
+        super().__init__(inp, TILE_H, reads)
+        p = self.p
+        k_occ_lo, k_occ_hi, self.sgn = (int(v) for v in inp.meta.tolist())
+        # The v coordinate: per cell, or (separable) per tile row from the
+        # tile's first column.
+        self.wv_q = self.wv_t[:, :, :1] if p["separable"] else self.wv_t
+        self.cap = n_slabs = self.n_slabs
+        ds = p["ds"]
+        k_a = _f2i(torch.floor(self.s_lo_t / ds - 0.5))
+        k_b = _f2i(torch.ceil(self.s_hi_t / ds - 0.5))
+        self.span(torch.clamp(torch.clamp(k_a, min=k_occ_lo), 0, n_slabs - 1),
+                  torch.clamp(torch.clamp(k_b, max=k_occ_hi), 0, n_slabs - 1))
+        # Slabs per two map planes along p (the pair-wide footprint).
+        f32 = np.float32
+        self.d_pair = int(np.ceil(f32(2.0) * f32(p["bp_p"])
+                                  / (f32(ds) * f32(p["Np"]))))
 
-    wu_t, wv_t = tiles(inp.wu), tiles(inp.wv)
-    s_lo, s_hi, kap, cov = (tiles(inp.s_lo), tiles(inp.s_hi),
-                            tiles(inp.kappa), tiles(inp.cov))
-    # The v coordinate: per cell, or (separable) per tile row from the
-    # tile's first column.
-    wv_q = wv_t[:, :, :1] if p["separable"] else wv_t
+    def k0_of(self, k):
+        Np = self.p["Np"]
+        return _f2i(torch.floor(self.slab_s(k) * float(Np) - 0.5)).clamp(
+            0, Np - 2)
 
-    def cov_min(a):
-        return torch.where(cov, a, _BIG).amin(dim=(1, 2))
+    def qu_bounds(self, k):
+        p = self.p
+        o_u, o_v, Su, Sv = p["o_u"], p["o_v"], float(p["Su"]), float(p["Sv"])
+        t = self.slab_s(k) - p["o_p"]
+        wu_min, wu_max, wv_min, wv_max = (self.wu_min, self.wu_max,
+                                          self.wv_min, self.wv_max)
+        return ((o_u + torch.minimum(wu_min * t, wu_max * t)) * Su - 0.5,
+                (o_u + torch.maximum(wu_min * t, wu_max * t)) * Su - 0.5,
+                (o_v + torch.minimum(wv_min * t, wv_max * t)) * Sv - 0.5,
+                (o_v + torch.maximum(wv_min * t, wv_max * t)) * Sv - 0.5)
 
-    def cov_max(a):
-        return torch.where(cov, a, -_BIG).amax(dim=(1, 2))
-
-    s_lo_t, s_hi_t = cov_min(s_lo), cov_max(s_hi)
-    wu_min, wu_max = cov_min(wu_t), cov_max(wu_t)
-    wv_min, wv_max = cov_min(wv_t), cov_max(wv_t)
-    any_cov = cov.reshape(T, -1).any(dim=1)
-
-    k_a = _f2i(torch.floor(s_lo_t / ds - 0.5))
-    k_b = _f2i(torch.ceil(s_hi_t / ds - 0.5))
-    k_a = torch.clamp(torch.clamp(k_a, min=k_occ_lo), 0, n_slabs - 1)
-    k_b = torch.clamp(torch.clamp(k_b, max=k_occ_hi), 0, n_slabs - 1)
-    if sgn > 0:
-        k_begin, k_end = k_a, k_b + 1
-        in_range = lambda k: k < k_end
-    else:
-        k_begin, k_end = k_b, k_a - 1
-        in_range = lambda k: k > k_end
-
-    slab_s = lambda k: (k.to(f) + 0.5) * ds
-
-    def k0_of(k):
-        return _f2i(torch.floor(slab_s(k) * float(Np) - 0.5)).clamp(0, Np - 2)
-
-    rate = torch.clamp(torch.maximum(
-        torch.maximum(wu_min.abs(), wu_max.abs()) * p["drift_u"],
-        torch.maximum(wv_min.abs(), wv_max.abs()) * p["drift_v"]), min=1.0)
-    inv_dsNp = float(f32(1.0) / (f32(ds) * f32(Np)))
-    # Slabs per two map planes along p (the pair-wide footprint).
-    d_pair = int(np.ceil(f32(2.0) * f32(bp_p) / (f32(ds) * f32(Np))))
-
-    def qu_bounds(k):
-        t = slab_s(k) - o_p
-        return ((o_u + torch.minimum(wu_min * t, wu_max * t)) * float(Su) - 0.5,
-                (o_u + torch.maximum(wu_min * t, wu_max * t)) * float(Su) - 0.5,
-                (o_v + torch.minimum(wv_min * t, wv_max * t)) * float(Sv) - 0.5,
-                (o_v + torch.maximum(wv_min * t, wv_max * t)) * float(Sv) - 0.5)
-
-    rows16 = torch.arange(16, device=dev)
-    cols = torch.arange(TILE_W, device=dev)
-
-    def window_min_d(k):
-        """Min pooled map value over the tile's dilated footprint on slab
+    def window_min_d(self, k, seen=None):
+        """Min pooled map value over each tile's dilated footprint on slab
         k's map planes, the footprint being the union of slab k's and the
         slab two map planes ahead; 0 when the window is taller than the
-        TPU kernel's 16-row view (conservatively occupied)."""
+        TPU kernel's 16-row view (conservatively occupied). ``seen``: as in
+        ``sweep_bricks.window_min``."""
+        n_slabs = self.n_slabs
         kc = k.clamp(0, n_slabs - 1)
-        k2 = (kc + sgn * d_pair).clamp(0, n_slabs - 1)
-        a, b = qu_bounds(kc), qu_bounds(k2)
-        qu_lo, qu_hi = torch.minimum(a[0], b[0]), torch.maximum(a[1], b[1])
-        qv_lo, qv_hi = torch.minimum(a[2], b[2]), torch.maximum(a[3], b[3])
-        m0 = (k0_of(kc) // bp_p).clamp(0, mp - 1)
-        iv, iu = p["inv_cvox_v"], p["inv_cvox_u"]
-        cv_lo = _f2i(torch.floor((qv_lo - 1.0) * iv)).clamp(0, CV - 1)
-        cv_hi = _f2i(torch.floor((qv_hi + 2.0) * iv)).clamp(0, CV - 1)
-        cu_lo = _f2i(torch.floor((qu_lo - 1.0) * iu)).clamp(0, CU - 1)
-        cu_hi = _f2i(torch.floor((qu_hi + 2.0) * iu)).clamp(0, CU - 1)
-        cv8 = ((cv_lo // 8) * 8).clamp(0, max(CVp - 16, 0))
-        rows = cv8[:, None] + rows16[None, :]
-        block = inp.coarse[m0[:, None, None], rows[:, :, None],
-                           cols[None, None, :]]
-        mask = (((rows >= cv_lo[:, None]) & (rows <= cv_hi[:, None]))[:, :, None]
-                & ((cols[None, :] >= cu_lo[:, None])
-                   & (cols[None, :] <= cu_hi[:, None]))[:, None, :])
-        d = torch.where(mask, block.to(torch.int64), 255).amin(dim=(1, 2))
-        return torch.where(cv_hi > cv8 + 15, 0, d)
+        k2 = (kc + self.sgn * self.d_pair).clamp(0, n_slabs - 1)
+        a, b = self.qu_bounds(kc), self.qu_bounds(k2)
+        m0 = (self.k0_of(kc) // self.p["bp_p"]).clamp(0, self.p["mp"] - 1)
+        return window_min(self.p, self.inp.coarse, m0,
+                          torch.minimum(a[0], b[0]), torch.maximum(a[1], b[1]),
+                          torch.minimum(a[2], b[2]), torch.maximum(a[3], b[3]),
+                          self.rows16, self.cols, seen)
 
-    def leap_target(k, d):
+    def leap_target(self, k, d):
         """The slab past the empty Chebyshev ball of radius d-1 around slab
         k's footprint (conservative: may land one slab short)."""
-        P = _f2i(torch.floor((d.to(f) - 1.0) / rate))
-        c0 = k0_of(k) // bp_p
-        if sgn > 0:
+        f = torch.float32
+        bp_p, inv_dsNp = self.p["bp_p"], self.inv_dsNp
+        P = _f2i(torch.floor((d.to(f) - 1.0) / self.rate))
+        c0 = self.k0_of(k) // bp_p
+        if self.sgn > 0:
             return torch.maximum(k + 1, _f2i(torch.floor(
                 (((c0 + P + 1) * bp_p - 2).to(f) + 1.5) * inv_dsNp - 0.5)))
         return torch.minimum(k - 1, _f2i(torch.ceil(
             (((c0 - P) * bp_p).to(f) + 0.5) * inv_dsNp - 0.5)) - 1)
 
-    def next_valid(k, todo):
-        """First slab from k on (in sweep order) whose footprint holds an
-        occupied map cell, leaping over empty space."""
-        todo = todo & in_range(k)
-        while bool(todo.any()):
-            d = window_min_d(k)
-            occupied = d == 0
-            k = torch.where(todo & ~occupied, leap_target(k, d), k)
-            todo = todo & ~occupied & in_range(k)
-        return k
+    def probe(self, k, todo=None, stats: dict | None = None):
+        """(occupied footprint, the leap's target) of slab k of each tile;
+        ``stats`` counts the window of each ``todo`` tile."""
+        d = self.window_min_d(
+            k, None if stats is None else (stats, "coarse", todo))
+        return d == 0, self.leap_target(k, d)
 
-    lum = torch.zeros((T, TILE_H, TILE_W), dtype=f, device=dev)
-    alpha = torch.zeros_like(lum)
-    firsts = torch.full_like(lum, 2.0)
-    nsamp = torch.zeros((T, TILE_H, TILE_W), dtype=torch.int32, device=dev)
-    vol = inp.vol.reshape(-1)
-    grad = inp.grad.reshape(-1) if p["use_gradient"] else None
-    plane = Sv * Su
+    def work(self, k, alpha):
+        """Tiles with a pixel that samples slab k."""
+        s3 = self.slab_s(k)[:, None, None]
+        work = self.cov & (s3 >= self.s_lo) & (s3 <= self.s_hi)
+        if self.ert:
+            work = work & (alpha <= 0.99)
+        return work.reshape(self.T, -1).any(dim=1)
 
-    def sample(k, sel, lum, alpha, firsts, nsamp):
-        s = slab_s(k)
+    def sample(self, k, sel, state):
+        """Composites slab k of each ``sel`` tile into ``state``."""
+        lum, alpha, firsts, nsamp = state
+        p, inp, reads = self.p, self.inp, self.reads
+        Np, Sv, Su = p["Np"], p["Sv"], p["Su"]
+        o_u, o_v, o_p = p["o_u"], p["o_v"], p["o_p"]
+        cov, s_lo, s_hi, kap = self.cov, self.s_lo, self.s_hi, self.kap
+        T = self.T
+        f = torch.float32
+        vol = inp.vol.reshape(-1)
+        grad = inp.grad.reshape(-1) if p["use_gradient"] else None
+        plane = Sv * Su
+        s = self.slab_s(k)
         t = (s - o_p)[:, None, None]
         zp = s * float(Np) - 0.5
         k0 = _f2i(torch.floor(zp)).clamp(0, Np - 2)
         fp = torch.clamp(zp - k0.to(f), 0.0, 1.0)[:, None, None]
         s3 = s[:, None, None]
-        qu = (o_u + wu_t * t) * float(Su) - 0.5
-        qv = torch.clamp((o_v + wv_q * t) * float(Sv) - 0.5, 0.0,
+        qu = (o_u + self.wu_t * t) * float(Su) - 0.5
+        qv = torch.clamp((o_v + self.wv_q * t) * float(Sv) - 0.5, 0.0,
                          float(Sv) - 1.0).expand(T, TILE_H, TILE_W)
         flu = torch.floor(qu)
         iu0 = _f2i(flu).clamp(0, Su - 1)
@@ -306,15 +276,17 @@ def sweep_slabs_plain(inp: SlabInputs, reads: dict | None = None):
             c1 = v10 + (v11 - v10) * fu
             return (w0 * c0 + w1 * c1) * _INV255
 
-        a_tf = torch.clamp((bilinear(vol) - p["imin"]) * p["iinv"], 0.0, 1.0)
+        a_int = torch.clamp((bilinear(vol) - p["imin"]) * p["iinv"], 0.0,
+                            1.0)
+        a_tf = a_int
         in_rng = cov & (s3 >= s_lo) & (s3 <= s_hi) & sel[:, None, None]
-        if ert:
+        if self.ert:
             in_rng = in_rng & (alpha <= 0.99)
         if reads is not None:
             idxs = [base + r * Su + iu for r in (r0, r1) for iu in (iu0, iu1)]
             mark_reads(reads["vol"], vol, idxs, in_rng, plane)
             if grad is not None:
-                mark_reads(reads["grad"], grad, idxs, in_rng & (a_tf > 0.0),
+                mark_reads(reads["grad"], grad, idxs, in_rng & (a_int > 0.0),
                            plane)
         if grad is not None:
             a_tf = a_tf * torch.clamp((bilinear(grad) - p["gmin"]) * p["ginv"],
@@ -322,61 +294,90 @@ def sweep_slabs_plain(inp: SlabInputs, reads: dict | None = None):
         a_corr = torch.clamp(p["vaf"] * (1.0 - torch.pow(1.0 - a_tf, kap)),
                              0.0, 1.0)
         contrib = in_rng & (a_tf > 0.0)
+        count_passed(reads, in_rng & (a_int > 0.0), contrib)
         one_m = 1.0 - alpha
         lum = torch.where(contrib, lum + one_m * a_tf * a_corr, lum)
         new_alpha = torch.where(contrib, alpha + one_m * a_corr, alpha)
         hit = contrib & (a_corr > 0.0) & (firsts > 1.5)
         firsts = torch.where(hit, s3.expand_as(firsts), firsts)
-        if ert:
+        if self.ert:
             new_alpha = torch.where(contrib & (new_alpha > 0.99), 1.0,
                                     new_alpha)
         if p["count_samples"]:
             nsamp = nsamp + in_rng.to(torch.int32)
         return lum, new_alpha, firsts, nsamp
 
-    k = next_valid(k_begin, any_cov)
-    while True:
-        active = any_cov & in_range(k)
-        if ert:
-            active = active & (cov & (alpha <= 0.99)).reshape(T, -1).any(dim=1)
-        if not bool(active.any()):
-            break
-        s3 = slab_s(k)[:, None, None]
-        work = cov & (s3 >= s_lo) & (s3 <= s_hi)
-        if ert:
-            work = work & (alpha <= 0.99)
-        sel = active & work.reshape(T, -1).any(dim=1)
-        if bool(sel.any()):
-            lum, alpha, firsts, nsamp = sample(k, sel, lum, alpha, firsts,
-                                               nsamp)
-        k = torch.where(active, next_valid(k + sgn, active), k)
 
-    def untile(a):
-        return (a.reshape(nty, ntx, TILE_H, TILE_W).permute(0, 2, 1, 3)
-                .reshape(H, W))
-
-    return untile(lum), untile(alpha), untile(firsts), untile(nsamp)
+def sweep_slabs_plain(inp: SlabInputs, reads: dict | None = None):
+    """Plain PyTorch version of K7 with its walk and compositing
+    interleaved, as the TPU kernel runs them
+    (``sweep_bricks._interleaved``): (lum, alpha, firsts, nsamp), each
+    (H, W). The independent check of the split that K7 runs (``slab_walk``
+    + ``sweep_slabs_composite``). ``reads`` gets the sectors the samples
+    need, as in ``sweep_bricks.sweep_bricks_reference``."""
+    return _interleaved(_PlainSlabs(inp, reads))
 
 
-def sweep_slabs_kernel(inp: SlabInputs):
-    """K7: (lum, alpha, firsts, nsamp). CPU tensors run the plain version;
-    CUDA tensors launch the kernel (or raise)."""
-    if inp.vol.device.type == "cpu":
-        return sweep_slabs_plain(inp)
+def slab_walk_plain(inp: SlabInputs, stats: dict | None = None) -> TileLists:
+    """Plain version of K7's walk: each tile's visited slabs in sweep
+    order. ``stats`` (``sweep_bricks.note_windows``; a sector map under
+    "coarse"): the windows the walk reduces, one per step."""
+    return _walk_lists(_PlainSlabs(inp), stats)
+
+
+def sweep_slabs_composite_plain(inp: SlabInputs, walk: TileLists):
+    """Plain version of K7's compositing over a walk's lists: (lum, alpha,
+    firsts, nsamp), each (H, W)."""
+    return _composite_lists(_PlainSlabs(inp), walk)
+
+
+def _require_fields(inp: SlabInputs, names) -> None:
     p = inp.params
-    H, W = p["H"], p["W"]
-    for name in ("wu", "wv", "s_lo", "s_hi", "kappa"):
+    for name in names:
         cuda_build.require_cuda(name, getattr(inp, name), torch.float32,
-                                (H, W))
-    cuda_build.require_cuda("cov", inp.cov, torch.bool, (H, W))
+                                (p["H"], p["W"]))
+    cuda_build.require_cuda("cov", inp.cov, torch.bool, (p["H"], p["W"]))
+    cuda_build.require_cuda("meta", inp.meta, torch.int32, (3,))
+
+
+def slab_walk(inp: SlabInputs) -> TileLists:
+    """K7's walk: each tile's visited slabs. CPU tensors run the plain
+    version; CUDA tensors launch the kernel (or raise)."""
+    if inp.vol.device.type == "cpu":
+        return slab_walk_plain(inp)
+    p = inp.params
+    _require_fields(inp, ("wu", "wv", "s_lo", "s_hi"))
     cuda_build.require_cuda("coarse", inp.coarse, torch.uint8,
                             (p["mp"], p["CVp"], TILE_W))
+    cuda_build.require_aligned("coarse", inp.coarse, 4)
+    lists = tile_lists(p["H"] // TILE_H * (p["W"] // TILE_W), p["n_slabs"],
+                       inp.vol.device)
+    ptrs = [t.data_ptr() for t in (inp.wu, inp.wv, inp.s_lo, inp.s_hi,
+                                   inp.cov, inp.coarse, inp.meta, lists.cnt,
+                                   lists.lst)]
+    cuda_build.check(cuda_build.load_kernels().vkv_slab_walk(
+        *ptrs, cuda_build.SlabParams(**p), cuda_build.stream()), "slab_walk")
+    LAUNCHES["slab_walk"] += 1
+    return lists
+
+
+def sweep_slabs_composite(inp: SlabInputs, walk: TileLists):
+    """K7's compositing over the walk's lists: (lum, alpha, firsts,
+    nsamp). CPU tensors run the plain version; CUDA tensors launch the
+    kernel (or raise)."""
+    if inp.vol.device.type == "cpu":
+        return sweep_slabs_composite_plain(inp, walk)
+    p = inp.params
+    H, W = p["H"], p["W"]
+    _require_fields(inp, ("wu", "wv", "s_lo", "s_hi", "kappa"))
     shape = (p["Np"], p["Sv"], p["Su"])
     cuda_build.require_cuda("vol", inp.vol, torch.uint8, shape)
     if p["use_gradient"]:
         cuda_build.require_cuda("grad", inp.grad, torch.uint8, shape)
-    cuda_build.require_cuda("meta", inp.meta, torch.int32, (3,))
-    lib = cuda_build.load_kernels()
+    n_tiles = H // TILE_H * (W // TILE_W)
+    cuda_build.require_cuda("cnt", walk.cnt, torch.int32, (n_tiles,))
+    cuda_build.require_cuda("lst", walk.lst, torch.int16,
+                            (n_tiles, p["n_slabs"]))
     dev = inp.vol.device
     lum = torch.empty((H, W), dtype=torch.float32, device=dev)
     alpha = torch.empty_like(lum)
@@ -385,13 +386,20 @@ def sweep_slabs_kernel(inp: SlabInputs):
     # Without a gradient TF the kernel never reads ``grad``.
     grad = inp.grad if p["use_gradient"] else inp.vol
     ptrs = [t.data_ptr() for t in (
-        inp.wu, inp.wv, inp.s_lo, inp.s_hi, inp.kappa, inp.cov, inp.coarse,
-        inp.vol, grad, inp.meta, lum, alpha, firsts, nsamp)]
-    cuda_build.check(lib.vkv_sweep_slabs(
+        inp.wu, inp.wv, inp.s_lo, inp.s_hi, inp.kappa, inp.cov, inp.vol,
+        grad, inp.meta, walk.cnt, walk.lst, lum, alpha, firsts, nsamp)]
+    cuda_build.check(cuda_build.load_kernels().vkv_sweep_slabs(
         *ptrs, cuda_build.SlabParams(**p), cuda_build.stream()),
         "sweep_slabs")
     LAUNCHES["sweep_slabs"] += 1
     return lum, alpha, firsts, nsamp
+
+
+def sweep_slabs_kernel(inp: SlabInputs):
+    """K7: the walk, then the compositing over its lists: (lum, alpha,
+    firsts, nsamp). CPU tensors run the plain versions; CUDA tensors
+    launch the kernels (or raise)."""
+    return sweep_slabs_composite(inp, slab_walk(inp))
 
 
 def sweep_slabs(vol_t: torch.Tensor, occupancy_t: torch.Tensor, tf: TFParams,

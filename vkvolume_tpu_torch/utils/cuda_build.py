@@ -89,12 +89,17 @@ _SIGNATURES = {
     "vkv_relax": [_P, _P, _I, _I, _I, _I, _I, _P],
     # (src, pos, out, C, Hs, Ws, Wo, src_u16, encode_out, stream)
     "vkv_resample_rows": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # (wu, wv, s_lo, s_hi, kappa, cov, coarse, cskip, vol, grad, kb_occ,
-    #  lum, alpha, firsts, nsamp, params, stream)
-    "vkv_sweep_bricks": [_P] * 15 + [BrickParams, _P],
-    # (wu, wv, s_lo, s_hi, kappa, cov, coarse, vol, grad, meta,
-    #  lum, alpha, firsts, nsamp, params, stream)
-    "vkv_sweep_slabs": [_P] * 14 + [SlabParams, _P],
+    # (wu, wv, s_lo, s_hi, cov, coarse, cskip, kb_occ, cnt, lst, params,
+    #  stream)
+    "vkv_brick_walk": [_P] * 10 + [BrickParams, _P],
+    # (wu, wv, s_lo, s_hi, kappa, cov, vol, grad, cnt, lst, lum, alpha,
+    #  firsts, nsamp, params, stream)
+    "vkv_sweep_bricks": [_P] * 14 + [BrickParams, _P],
+    # (wu, wv, s_lo, s_hi, cov, coarse, meta, cnt, lst, params, stream)
+    "vkv_slab_walk": [_P] * 9 + [SlabParams, _P],
+    # (wu, wv, s_lo, s_hi, kappa, cov, vol, grad, meta, cnt, lst, lum,
+    #  alpha, firsts, nsamp, params, stream)
+    "vkv_sweep_slabs": [_P] * 15 + [SlabParams, _P],
     # (src, gx, gy, out, C, Hi, Wi, n_pix, stream)
     "vkv_warp_pixels": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
@@ -167,3 +172,11 @@ def require_cuda(name: str, t: torch.Tensor, dtype: torch.dtype,
                          f"got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def require_aligned(name: str, t: torch.Tensor, nbytes: int) -> None:
+    """A kernel reads ``t`` in words of ``nbytes``: its base must be
+    aligned to them."""
+    if t.data_ptr() % nbytes:
+        raise ValueError(f"{name}: expected a base aligned to {nbytes} "
+                         "bytes")
