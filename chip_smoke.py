@@ -54,8 +54,10 @@ full-scale synthetic stag beetle (494x832x832 u8) into bench.py's engine
          with its walk kernel alone;
   6. prints the kernel table (each kernel's time, its plain version's,
      the least time the card could take for the same work, and a PyTorch
-     call's where one computes the same function) and, as the last line,
-     {"ok": true, "device": {...}}.
+     call's where one computes the same function; a kernel's time is the
+     card's: the timed calls wait behind a sleep while the host issues
+     them), the frame times and both paths' map_update_ms and, as the last
+     line, {"ok": true, "device": {...}}.
 
 K1 and K7 each launch two kernels, a walk that lists every tile's visited
 bricks or slabs and a composite over the lists; every check holds the walk
@@ -87,6 +89,7 @@ MIN_COVERED = 0.05      # share of pixels with alpha > 0 the frame must show
 FRAME_TOL = 2e-3        # per-pixel colour tolerance (tests/test_torch_frame)
 FRAME_BAD_SHARE = 1e-3  # share of pixels allowed beyond it
 FRAME_ALPHA_MEAN = 1e-4  # mean alpha difference allowed
+SLEEP_CYCLES = 10_000_000  # about 5 ms of the card's clock
 STILL_AZIMUTH, STILL_SAMPLING = 80.0, 0.25   # phase 5a's still frame
 ORBIT_POSES = {30.0: ("K1", "K2"), 35.0: ("K7", "K2"), 40.0: ("K7", "gather"),
                90.0: ("K1", "K8")}   # benchmark-orbit azimuth: its route
@@ -94,19 +97,24 @@ ORBIT_POSES = {30.0: ("K1", "K2"), 35.0: ("K7", "K2"), 40.0: ("K7", "gather"),
 # The least time the card could take for a kernel's work: the larger of its
 # bytes (each input read once, each output written once) over the H100's
 # device-memory rate and its operations over its float32 rate outside the
-# tensor cores (the integer loops of the distance kernels are counted at
-# the same rate). Both are NVIDIA's published H100 SXM figures at 700 W.
+# tensor cores (the integer work of the distance kernels is counted at the
+# same rate). Both are NVIDIA's published H100 SXM figures at 700 W.
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
 # Operations per unit of work, counted from the kernels' sources. A sweep
 # sample in range: index arithmetic, the intensity volume's 8 taps and
 # their lerps, its TF; one whose intensity alpha is above 0 (gradient TF
 # only): the gradient map's taps, lerps and TF; one that composites: powf
-# counted as 20, compositing. The other units: one step of a distance loop
-# in one sense (load, max, min, compare); one warped pixel, plus one
-# channel.
+# counted as 20, compositing. The other units: one warped pixel, plus one
+# channel; and one step of a distance map (load, compare, min, store).
 OPS_IN_RANGE, OPS_GRADIENT, OPS_COMPOSITE = 65, 39, 30
 OPS_PER_STEP = 4
+# A distance map's work, fixed by its shape and not by the data or the
+# kernel: each pass of an x-scan takes one step per cell, and each output
+# cell takes one step per sense of its relaxation (one test of a window
+# against its neighbour's value: the least any exact method needs; a
+# search per cell takes up to ceil(log2(cap + 1)) of them, a loop as long
+# as the distance more). Charged alike to every kernel that builds the map.
 OPS_PER_PIXEL, OPS_PER_CHANNEL = 14, 7
 # A sweep's walk: per window its bounds, leap and final min; per 4-byte
 # word of the window read, its padding and byte-wise min; per cell its six
@@ -123,11 +131,20 @@ def bound(nbytes: float, ops: float) -> dict:
 
 
 def total(t) -> int:
-    """Sum of an integer tensor (a map's distances: its cells' loop
-    steps)."""
+    """Sum of an integer tensor."""
     import torch
 
     return int(t.to(torch.int64).sum())
+
+
+def distance_bound(n_in: int, n_out: int, cells: int, scan_passes: int,
+                   senses: int) -> dict:
+    """bound_ms of a distance kernel: ``n_in`` u8 maps read and ``n_out``
+    written once, of ``cells`` cells each; ``scan_passes`` x-scan passes
+    and ``senses`` relaxation senses per output map (OPS_PER_STEP each per
+    cell)."""
+    return bound((n_in + n_out) * cells,
+                 OPS_PER_STEP * cells * (scan_passes + n_out * senses))
 
 
 def needed_reads(inp) -> dict:
@@ -253,14 +270,18 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def gpu_timer(fn, n: int, warm: int = 1) -> float:
+def gpu_timer(fn, n: int, warm: int = 1, queued: bool = True) -> float:
     """Mean milliseconds per call of ``fn`` on the card (CUDA events over
-    ``n`` calls after ``warm`` untimed ones)."""
+    ``n`` calls after ``warm`` untimed ones). ``queued``: the calls wait
+    behind a sleep on the card while the host issues them, so the time is
+    the card's alone, not a wrapper's host time between short kernels."""
     import torch
 
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
+    if queued:
+        torch.cuda._sleep(SLEEP_CYCLES)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -342,22 +363,21 @@ def phase_kernels(eng, cam, timer):
     for i in range(8):
         assert torch.equal(z_k[i], z_p[i]), f"K4 octant map {i} differs"
     assert torch.equal(v.dist_maps, z_p), "engine maps differ"
-    # K3's steps: each output's x-scan and y-relax loops, each bounded by
-    # the output's distance.
+    # K3: two one-sided x-scans, four outputs of one y sense each; K4: 8
+    # outputs of one z sense each.
+    cells = occ.numel()
     rows["K3"] = dict(max_abs_err=0.0,
                       ms=timer(lambda: distance_cuda.scan_and_relax_multi(occ),
                                20),
                       plain_ms=timer(lambda: distance.scan_and_relax_multi(occ),
                                      2),
-                      **bound(occ.numel() + xy_k.numel(),
-                              2 * OPS_PER_STEP * total(xy_k)))
+                      **distance_bound(1, 4, cells, 2, 1))
     rows["K4"] = dict(max_abs_err=0.0,
                       ms=timer(lambda: distance_cuda.relax_z_direct_multi(xy_k),
                                20),
                       plain_ms=timer(lambda: distance.relax_z_direct_multi(xy_k),
                                      2),
-                      **bound(xy_k.numel() + z_k.numel(),
-                              OPS_PER_STEP * total(z_k)))
+                      **distance_bound(4, 8, cells, 0, 1))
     log(f"phase 2: K3+K4 bit-exact on 8 maps {tuple(z_k.shape)}")
 
     # K1 on the frame's own grid fields and maps.
@@ -555,7 +575,7 @@ def phase_frame(eng, cam):
     check_against_plain_frame(eng, cam, color, WIDTH, HEIGHT, "phase 3")
     img = np.clip(np.round(color[..., :3].cpu().numpy() * 255.0), 0, 255)
     log(f"phase 3: u8 image mean {img.mean():.3f}")
-    return frame_ms, reps, launches
+    return frame_ms, st.map_update_ms, launches
 
 
 def phase_cli(timer, out_dir):
@@ -628,18 +648,18 @@ def phase_cli(timer, out_dir):
     z_k = distance_cuda.relax_z_direct(xy_k[0])
     assert torch.equal(z_k, distance.relax_z_direct(xy_k[0], (0,))), \
         "two-sided K4 differs from its plain version"
-    # Two senses per step; K5 runs an x-scan and a y-relax.
+    # K5: the two passes of the two-sided x-scan, the y-relax in two
+    # senses; the two-sided K4: the z-relax in two senses.
     rows["K5"] = dict(max_abs_err=0.0,
                       ms=timer(lambda: distance_cuda.scan_and_relax(occ), 20),
                       plain_ms=timer(lambda: distance.scan_and_relax(
                           occ, 0, (0,)), 2),
-                      **bound(occ.numel() + xy_k.numel(),
-                              4 * OPS_PER_STEP * total(xy_k)))
+                      **distance_bound(1, 1, occ.numel(), 2, 2))
     rows["K4 two-sided"] = dict(
         max_abs_err=0.0,
         ms=timer(lambda: distance_cuda.relax_z_direct(xy_k[0]), 20),
         plain_ms=timer(lambda: distance.relax_z_direct(xy_k[0], (0,)), 2),
-        **bound(xy_k.numel() + z_k.numel(), 2 * OPS_PER_STEP * total(z_k)))
+        **distance_bound(1, 1, occ.numel(), 0, 2))
     log(f"phase 4: isotropic map bit-exact {tuple(z_k.shape)}, max "
         f"{int(z_k.max())}")
 
@@ -680,8 +700,8 @@ def phase_cli(timer, out_dir):
         f"{CLI_WIDTH}x{CLI_HEIGHT})")
     # map_update_ms: one TF edit (occupancy + isotropic map), median of
     # REPS means over 20 queued builds.
-    map_reps = [timer(lambda: eng.update_transfer_function(v), 20)
-                for _ in range(REPS)]
+    map_reps = [timer(lambda: eng.update_transfer_function(v), 20,
+                      queued=False) for _ in range(REPS)]
     map_ms = statistics.median(map_reps)
     log(f"phase 4: map_update_ms median={map_ms:.4f} reps="
         f"{[round(r, 4) for r in map_reps]}")
@@ -734,8 +754,7 @@ def phase_accel(eng, timer):
     row = dict(max_abs_err=0.0,
                ms=timer(lambda: distance_cuda.relax(xy, 0, 0), 20),
                plain_ms=timer(lambda: distance.relax(xy, 0, 0), 2),
-               **bound(xy.numel() + iso.numel(),
-                       2 * OPS_PER_STEP * total(iso)))
+               **distance_bound(1, 1, xy.numel(), 0, 2))
     log(f"phase 4: K6 bit-exact (axes 0 and 1, senses 0, +1, -1) on "
         f"{tuple(xs.shape)}; K5 + K6 = the engine's isotropic map")
     return {"K6": row}, launches
@@ -961,7 +980,7 @@ def main() -> int:
     eng.render(cam, WIDTH, HEIGHT)        # populates the pose / map caches
     torch.cuda.synchronize()
     rows = phase_kernels(eng, cam, gpu_timer)
-    frame_ms, _, launches = phase_frame(eng, cam)
+    frame_ms, map_ms, launches = phase_frame(eng, cam)
     del eng
     with tempfile.TemporaryDirectory() as out_dir:
         cli_rows, cli_launches, cli_ms, cli_map_ms, cli_eng = phase_cli(
@@ -1041,7 +1060,8 @@ def main() -> int:
                         "ms": r["ms"], "plain_ms": r["plain_ms"],
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                         "library_ms": lib})
-    log(f"frame_ms_median {frame_ms:.4f} ({WIDTH}x{HEIGHT}, skipmode 3)")
+    log(f"frame_ms_median {frame_ms:.4f} map_update_ms {map_ms:.4f} "
+        f"({WIDTH}x{HEIGHT}, skipmode 3)")
     log(f"cli_frame_ms_median {cli_ms:.4f} cli_map_update_ms {cli_map_ms:.4f} "
         f"({CLI_WIDTH}x{CLI_HEIGHT}, skipmode 2, gradient TF)")
     log(f"still_k7_k8_frame_ms_median {still_ms:.4f} (azimuth "

@@ -26,9 +26,15 @@ def dev():
     return torch.device("cuda")
 
 
+# Tile edges of the line kernels: X and Y off multiples of the tile width
+# (and of 4), Z = 1, and z lines of 3000 cells, longer than one table holds
+# (segments with halos).
 @pytest.mark.parametrize("shape,p,cap", [((9, 11, 13), 0.1, 63),
                                          ((13, 7, 140), 0.03, 63),
-                                         ((24, 32, 40), 0.004, 15)])
+                                         ((24, 32, 40), 0.004, 15),
+                                         ((5, 7, 33), 0.05, 63),
+                                         ((1, 37, 70), 0.05, 63),
+                                         ((3000, 2, 3), 0.002, 63)])
 def test_distance_kernels_bit_exact(dev, shape, p, cap):
     rng = np.random.default_rng(0)
     occ = torch.tensor(np.where(rng.random(shape) < p, 0, 255)
@@ -42,10 +48,15 @@ def test_distance_kernels_bit_exact(dev, shape, p, cap):
 
 
 @pytest.mark.parametrize("shape,p", [((9, 11, 13), 0.1), ((13, 7, 140), 0.03),
-                                     ((70, 9, 300), 0.0)])
+                                     ((70, 9, 300), 0.0), ((1, 45, 77), 0.02),
+                                     ((3, 130, 9), 0.01), ((2, 520, 520), 0.0),
+                                     ((2, 520, 520), 0.0005),
+                                     ((1, 3000, 5), 0.001),
+                                     ((3000, 2, 3), 0.002)])
 def test_isotropic_kernels_bit_exact(dev, shape, p):
     """K5 and the two-sided K4 (p=0: one occupied cell, distances past
-    255 cells saturate)."""
+    255 cells saturate). A 520 x 520 plane (264 KB) is more than a block's
+    shared memory: K5 tiles x. Lines of 3000 cells run in segments."""
     rng = np.random.default_rng(0)
     occ = np.where(rng.random(shape) < p, 0, 255).astype(np.uint8)
     occ[0, 0, 0] = 0
@@ -131,12 +142,15 @@ def test_frame_kernels_match_plain_versions(dev, key, skipmode, density):
         assert float((k[1] - r[1]).abs().max()) <= 1e-5
 
 
+@pytest.mark.parametrize("shape", [(21, 10, 140), (1, 9, 33), (3000, 5, 3),
+                                   (2, 3000, 5), (2, 520, 520)])
 @pytest.mark.parametrize("axis", [0, 1])
 @pytest.mark.parametrize("direction", [0, 1, -1])
-def test_relax_kernel_bit_exact(dev, axis, direction):
-    """K6 along z or y, two- or one-sided."""
+def test_relax_kernel_bit_exact(dev, axis, direction, shape):
+    """K6 along z or y, two- or one-sided, on tile edges: Z = 1, lines of
+    3000 cells (segments), a 520 x 520 plane."""
     rng = np.random.default_rng(axis * 3 + direction + 1)
-    occ = torch.tensor(np.where(rng.random((21, 10, 140)) < 0.01, 0, 255)
+    occ = torch.tensor(np.where(rng.random(shape) < 0.01, 0, 255)
                        .astype(np.uint8), device=dev)
     D = distance.axis_scan(occ, 2, 0).clamp(max=255).to(torch.uint8)
     got = distance_cuda.relax(D, axis, direction)

@@ -16,8 +16,10 @@ host schedules src/compute_distance_map.cpp:142-175 and :229-252):
 
 This module is the plain version of the kernels in ``distance_cuda.py``
 (K3 = one-sided x-scan + y-relax, K4 = z-relax, K5 = two-sided x-scan +
-y-relax). Occupancy convention: OCCUPIED = 0, EMPTY = 255. Isotropic maps
-are uncapped (values up to 255); only the octant maps take ``ANISO_CAP``.
+y-relax); ``relax_search``, ``relax_walk`` and ``axis_scan_linear`` state
+the kernels' own algorithms for the tests. Occupancy convention:
+OCCUPIED = 0, EMPTY = 255. Isotropic maps are uncapped (values up to
+255); only the octant maps take ``ANISO_CAP``.
 """
 
 from __future__ import annotations
@@ -73,6 +75,115 @@ def relax(D: torch.Tensor, axis: int, direction: int) -> torch.Tensor:
                                     .clamp(min=n)))
         n += 1
     return A
+
+
+def axis_scan_linear(occ: torch.Tensor, axis: int,
+                     direction: int) -> torch.Tensor:
+    """``axis_scan`` as two linear passes along ``axis`` (int32 out): the
+    ascending pass g[x] = min(g[x], g[x - 1] + 1) takes the -1 sense, the
+    descending pass g[x] = min(g[x], g[x + 1] + 1) the +1 sense, both the
+    two-sided scan. K5's x-scan is their closed form."""
+    g = occ.to(torch.int32).movedim(axis, 0).clone()
+    L = g.shape[0]
+    if direction <= 0:
+        for x in range(1, L):
+            torch.minimum(g[x], g[x - 1] + 1, out=g[x])
+    if direction >= 0:
+        for x in range(L - 2, -1, -1):
+            torch.minimum(g[x], g[x + 1] + 1, out=g[x])
+    return g.movedim(0, axis)
+
+
+def _window_table(d: torch.Tensor):
+    """The minima of the windows of 2^k cells along the last axis of the
+    int32 ``d`` (k up to 7: no window of a one-sided relaxation of u8
+    values is longer), and ``window_min(a, b)``: min(d[..., a:b + 1]) per
+    element, a <= b, from two entries of the level of the largest power of
+    two within the window."""
+    L = d.shape[-1]
+    levels = [d]
+    while (2 << (len(levels) - 1)) <= min(L, 255):
+        half = 1 << (len(levels) - 1)
+        prev = levels[-1]
+        nxt = torch.full_like(prev, 255)
+        nxt[..., :L - 2 * half + 1] = torch.minimum(
+            prev[..., :L - 2 * half + 1], prev[..., half:L - half + 1])
+        levels.append(nxt)
+    table = torch.stack(levels, -2).flatten(-2)          # (..., K * L)
+
+    def window_min(a, b):
+        n = b - a + 1
+        k = torch.zeros_like(n)
+        for j in range(1, len(levels)):
+            k += (n >= (1 << j)).to(torch.int32)
+        first = torch.gather(table, -1, (k * L + a).long())
+        last = torch.gather(table, -1,
+                            (k * L + b - (torch.ones_like(k) << k) + 1).long())
+        return torch.minimum(first, last)
+
+    return window_min
+
+
+def relax_search(D: torch.Tensor, axis: int, direction: int) -> torch.Tensor:
+    """``relax`` of a u8 map by a search per cell (int32 out; the tests
+    hold it against ``relax``).
+
+    A[l] = min_n max(n, D[l + s n]) (one sense s) is the least t for which
+    the window [l, l + t] (s = +1) or [l - t, l] (s = -1), clipped to the
+    line, holds a value <= t: its minimum only falls as t grows, and
+    t = D[l] always qualifies. t is found by descending powers of two
+    (t <= 254), keeping the largest t that fails. Two-sided (direction 0):
+    the minimum of the two senses."""
+    if direction == 0:
+        return torch.minimum(relax_search(D, axis, 1),
+                             relax_search(D, axis, -1))
+    d = D.to(torch.int32).movedim(axis, -1)
+    L = d.shape[-1]
+    window_min = _window_table(d)
+    pos = torch.arange(L, dtype=torch.int32, device=d.device).expand_as(d)
+    t0 = torch.full_like(d, -1)          # the largest t known to fail
+    for k in range(7, -1, -1):
+        t = t0 + (1 << k)
+        if direction > 0:
+            w = window_min(pos, (pos + t).clamp(max=L - 1))
+        else:
+            w = window_min((pos - t).clamp(min=0), pos)
+        t0 = torch.where((t < d) & (w > t), t, t0)
+    return (t0 + 1).movedim(-1, axis)
+
+
+def relax_walk(D: torch.Tensor, axis: int, direction: int,
+               run: int) -> torch.Tensor:
+    """``relax`` of a u8 map as the kernels compute it (int32 out; the
+    tests hold it against ``relax``): each line in runs of ``run`` cells,
+    walked in the sense's order (+1: from the run's last cell down), the
+    first cell by ``relax_search``, each next one by one step from its
+    neighbour's a: A[l] = min(D[l], B), B = min_{n >= 1} max(n, D[l + s n])
+    is a or a + 1, and a exactly when one of the a cells past l holds at
+    most a. Two-sided (direction 0): the minimum of the two senses."""
+    if direction == 0:
+        return torch.minimum(relax_walk(D, axis, 1, run),
+                             relax_walk(D, axis, -1, run))
+    d = D.to(torch.int32).movedim(axis, -1)
+    L = d.shape[-1]
+    window_min = _window_table(d)
+    first = relax_search(D, axis, direction).movedim(axis, -1)
+    out = torch.empty_like(d)
+    for r0 in range(0, L, run):
+        cells = range(r0, min(L, r0 + run))
+        order = list(cells)[::-1] if direction > 0 else list(cells)
+        out[..., order[0]] = first[..., order[0]]
+        for prev, m in zip(order, order[1:]):
+            a = out[..., prev:prev + 1]
+            if direction > 0:
+                w = window_min(torch.full_like(a, m + 1),
+                               (m + a).clamp(min=m + 1, max=L - 1))
+            else:
+                w = window_min((m - a).clamp(min=0, max=m - 1),
+                               torch.full_like(a, m - 1))
+            b = torch.where((a > 0) & (w <= a), a, a + 1)
+            out[..., m:m + 1] = torch.minimum(d[..., m:m + 1], b)
+    return out.movedim(-1, axis)
 
 
 def scan_and_relax(occ_u8: torch.Tensor, scan_dir: int = 0,

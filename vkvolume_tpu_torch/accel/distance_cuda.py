@@ -30,19 +30,17 @@ def _require_zyx(name: str, t: torch.Tensor) -> None:
 
 def scan_and_relax(occ_u8: torch.Tensor) -> torch.Tensor:
     """K5: the two-sided x-scan and two-sided y-relaxation of a (Z, Y, X)
-    u8 occupancy map, as (1, Z, Y, X) u8 (``relax_dirs=(0,)``)."""
+    u8 occupancy map, as (1, Z, Y, X) u8 (``relax_dirs=(0,)``), in one
+    launch (the x-scan stays in shared memory)."""
     if occ_u8.device.type == "cpu":
         return distance.scan_and_relax(occ_u8, 0, (0,))
     _require_zyx("occ_u8", occ_u8)
     lib = cuda_build.load_kernels()
     Z, Y, X = occ_u8.shape
-    xs = torch.empty((Z, Y, X), dtype=torch.uint8, device=occ_u8.device)
     out = torch.empty((1, Z, Y, X), dtype=torch.uint8, device=occ_u8.device)
-    s = cuda_build.stream()
-    cuda_build.check(lib.vkv_x_scan2(occ_u8.data_ptr(), xs.data_ptr(),
-                                     Z, Y, X, s), "x_scan2")
-    cuda_build.check(lib.vkv_relax(xs.data_ptr(), out.data_ptr(), Z, Y, X,
-                                   1, 0, s), "relax (y)")
+    cuda_build.check(lib.vkv_scan_relax2(occ_u8.data_ptr(), out.data_ptr(),
+                                         Z, Y, X, cuda_build.stream()),
+                     "scan_relax2")
     LAUNCHES["scan_and_relax"] += 1
     return out
 

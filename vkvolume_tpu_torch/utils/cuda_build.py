@@ -83,8 +83,8 @@ _SIGNATURES = {
     "vkv_y_relax4": [_P, _P, _P, _I, _I, _I, _P],
     # (in4, out8, Z, Y, X, stream)
     "vkv_z_relax8": [_P, _P, _I, _I, _I, _P],
-    # (occ, xs, Z, Y, X, stream) / (in, out, Z, Y, X, stream)
-    "vkv_x_scan2": [_P, _P, _I, _I, _I, _P],
+    # (occ, out, Z, Y, X, stream)
+    "vkv_scan_relax2": [_P, _P, _I, _I, _I, _P],
     # (in, out, Z, Y, X, axis, dir, stream)
     "vkv_relax": [_P, _P, _I, _I, _I, _I, _I, _P],
     # (src, pos, out, C, Hs, Ws, Wo, src_u16, encode_out, stream)
