@@ -14,8 +14,11 @@ full-scale synthetic stag beetle (494x832x832 u8) into bench.py's engine
   2. holds every kernel against its plain PyTorch version on the card at the
      main path's shapes (K3+K4 bit-exact; K1's walk lists equal to the plain
      walk's, its sample counts and first-hit planes exact, lum and alpha
-     within 1e-5 of the plain sweep; K2 u16 within 1 LSB, f32 within 1e-6
-     of full scale) and times both;
+     within 1e-5 of the plain sweep; K2 per pass u16 within 1 LSB, f32
+     within 1e-6 of full scale, and the whole two-pass warp of the frame's
+     channels in both variants within 1 LSB of the plain warp, each call
+     two kernels and no other work on the card) and times both, K2 beside
+     one ``grid_sample`` per pass;
   3. with every launch counter at 0, re-runs the TF edit and renders the
      benchmark pose at 1920x1080 (20 frames x 5 reps, CUDA events), then
      checks that K1-K4 launched, the plan took the brick sweep and the
@@ -344,6 +347,7 @@ def phase_kernels(eng, cam, timer):
     from vkvolume_tpu_torch.accel import distance, distance_cuda
     from vkvolume_tpu_torch.accel.occupancy import (_occupancy_u8,
                                                     _tf_thresholds)
+    from vkvolume_tpu_torch.bench.warp_probe import device_work
     from vkvolume_tpu_torch.render import sweep_bricks, sweep_frame, warp_cuda
     from vkvolume_tpu_torch.render.ray_setup import make_rays
 
@@ -441,22 +445,97 @@ def phase_kernels(eng, cam, timer):
                    - warp_cuda.resample_rows_reference(src, pos)).abs().max())
         assert d <= 1e-6, f"K2 f32 differs by {d}"
         err = max(err, d)
-    C = enc1.shape[0]
-    rows["K2"] = dict(
-        max_abs_err=max(err, d16 / 65535.0),
-        ms=timer(lambda: (warp_cuda.resample_rows(enc1, pos1,
-                                                  encode_out=True),
-                          warp_cuda.resample_rows(src2, pos2)), 20),
-        plain_ms=timer(lambda: (
-            warp_cuda.resample_rows_reference(enc1, pos1, encode_out=True),
-            warp_cuda.resample_rows_reference(src2, pos2)), 3),
-        # Both passes: u16 sources, f32 positions, u16 then f32 outputs.
-        **bound(2 * enc1.numel() + 4 * pos1.numel() + 2 * C * pos1.numel()
-                + 2 * src2.numel() + 4 * pos2.numel() + 4 * C * pos2.numel(),
-                OPS_PER_CHANNEL * C * (pos1.numel() + pos2.numel())))
-    log(f"phase 2: K2 u16 within {d16} LSB, f32 err {err:.3g}; positions "
-        f"{tuple(pos1.shape)} -> {tuple(pos2.shape)}")
+    log(f"phase 2: K2 per pass: u16 within {d16} LSB, f32 err {err:.3g}; "
+        f"positions {tuple(pos1.shape)} -> {tuple(pos2.shape)}")
+    err = max(err, d16 / 65535.0)
+
+    # The two-pass warp (two K2 launches, encode, transposes and decode
+    # inside them) at the frame's shapes, in its variant and the other,
+    # against its plain version; each call puts two kernels and nothing
+    # else on the card.
+    C = chans.shape[0]
+    scales = [65535.0] * C
+    for variant in (plan["warp_variant"], "AB".replace(plan["warp_variant"],
+                                                       "")):
+        fused, plain = warp_pair(variant)
+        p1, p2 = sweep_frame.warp_positions(
+            gx, gy, gp, hcoef, Hi=plan["Hi"], Wi=plan["Wi"],
+            warp_variant=variant)
+        got = fused(chans, p1, p2, scales=scales)
+        d = float((got - plain(chans, p1, p2, scales=scales)).abs().max())
+        assert d * 65535.0 <= 1.0 + 1e-6 * 65535.0, \
+            f"two-pass warp {variant} differs by {d}"
+        work = device_work(lambda: fused(chans, p1, p2, scales=scales))
+        log(f"phase 2: two-pass warp {variant}: {tuple(chans.shape)} -> "
+            f"{tuple(got.shape)}, err {d:.3g}; on the card per call: "
+            f"{work['device_events']} events {work['names']}")
+        assert work["device_events"] == 2 and work["copies"] == 0, \
+            f"two-pass warp {variant}: {work}"
+        if variant == plan["warp_variant"]:
+            err = max(err, d)
+            n1, n2 = p1.numel(), p2.numel()
+            library, lib_err = warp_library(chans, p1, p2, variant)
+            rows["K2"] = dict(
+                max_abs_err=err,
+                ms=timer(lambda: fused(chans, p1, p2, scales=scales), 20),
+                plain_ms=timer(lambda: plain(chans, p1, p2, scales=scales),
+                               3),
+                library_ms=timer(library, 20),
+                # Both passes: f32 channels and positions in, the u16
+                # intermediate out and in again, f32 pixels out.
+                **bound(4 * chans.numel() + 4 * n1 + 4 * C * n1 + 4 * n2
+                        + 4 * C * n2, OPS_PER_CHANNEL * C * (n1 + n2)))
+            log(f"phase 2: grid_sample per pass differs from the plain f32 "
+                f"pass 1 by {lib_err:.3g} where it is not masked")
     return rows
+
+
+def warp_pair(variant: str):
+    """(the two-pass warp of ``variant``, its plain version)."""
+    from vkvolume_tpu_torch.render import warp_cuda
+
+    if variant == "B":
+        return warp_cuda.warp_two_pass_b, warp_cuda.warp_two_pass_b_plain
+    return warp_cuda.warp_two_pass, warp_cuda.warp_two_pass_plain
+
+
+def warp_library(chans, pos1, pos2, variant: str):
+    """The yardstick of the two-pass warp: one ``grid_sample`` call per
+    pass computing the same lerp in f32 (rows as the batch, one-row
+    inputs, ``align_corners=True``, border padding; no mask, no u16
+    encoding; grids normalised once, outside the timing). Returns the
+    call and its first pass's largest difference from the plain f32 pass
+    where the positions are not masked."""
+    import torch
+    from vkvolume_tpu_torch.render import warp_cuda
+
+    C, Hi, Wi = chans.shape
+    n1, n2 = (Wi, Hi) if variant == "A" else (Hi, Wi)
+    src1 = (chans.permute(1, 0, 2) if variant == "A"
+            else chans.permute(2, 0, 1))[:, :, None]   # (lines, C, 1, n)
+
+    def grid(pos, n_src):
+        g = torch.zeros(pos.shape + (2,), device=pos.device)
+        g[..., 0] = pos / (n_src - 1) * 2.0 - 1.0
+        return g[:, None]                               # (lines, 1, n, 2)
+
+    g1, g2 = grid(pos1, n1), grid(pos2, n2)
+
+    def sample(src, g):
+        return torch.nn.functional.grid_sample(
+            src, g, mode="bilinear", padding_mode="border",
+            align_corners=True)                         # (lines, C, 1, n)
+
+    def library():
+        return sample(sample(src1, g1).permute(3, 1, 2, 0), g2)
+
+    first = sample(src1, g1)[:, :, 0].permute(1, 0, 2)  # (C, lines, n)
+    want = warp_cuda.resample_pass_plain(chans, pos1,
+                                         column_src=variant == "B")
+    inside = (pos1 > -5.0)[None]
+    err = float(torch.where(inside, first - want, 0.0).abs().max())
+    assert err <= 1e-4, f"grid_sample pass 1 differs by {err}"
+    return library, err
 
 
 def reset_launches():
@@ -492,17 +571,20 @@ def plain_frame(eng, cam, width=WIDTH, height=HEIGHT):
     in phases 2 and 4)."""
     from vkvolume_tpu_torch.render import sweep_bricks, sweep_slabs, warp_cuda
 
-    saved = (sweep_bricks.sweep_bricks_kernel, warp_cuda.resample_rows,
-             sweep_slabs.sweep_slabs_kernel, warp_cuda.warp_to_pixels)
+    saved = (sweep_bricks.sweep_bricks_kernel, warp_cuda.warp_two_pass,
+             warp_cuda.warp_two_pass_b, sweep_slabs.sweep_slabs_kernel,
+             warp_cuda.warp_to_pixels)
     sweep_bricks.sweep_bricks_kernel = sweep_bricks.sweep_bricks_reference
-    warp_cuda.resample_rows = warp_cuda.resample_rows_reference
+    warp_cuda.warp_two_pass = warp_cuda.warp_two_pass_plain
+    warp_cuda.warp_two_pass_b = warp_cuda.warp_two_pass_b_plain
     sweep_slabs.sweep_slabs_kernel = sweep_slabs.sweep_slabs_plain
     warp_cuda.warp_to_pixels = warp_cuda.warp_to_pixels_plain
     try:
         return eng.render(cam, width, height)
     finally:
-        (sweep_bricks.sweep_bricks_kernel, warp_cuda.resample_rows,
-         sweep_slabs.sweep_slabs_kernel, warp_cuda.warp_to_pixels) = saved
+        (sweep_bricks.sweep_bricks_kernel, warp_cuda.warp_two_pass,
+         warp_cuda.warp_two_pass_b, sweep_slabs.sweep_slabs_kernel,
+         warp_cuda.warp_to_pixels) = saved
 
 
 def frame_reps(eng, cam, width, height):
@@ -1003,7 +1085,8 @@ def main() -> int:
             "sweep_bricks (gradient TF, plane-pair lerp; CLI frame)",
             cli_launches["K1"], "vkvolume_tpu_torch/csrc/sweep_bricks.cu",
             "vkvolume_tpu/render/sweep_bricks.py:56"),
-        "K2": ("resample_rows (2 launches per frame; ms per frame)",
+        "K2": ("resample_pass (the two-pass warp: 2 launches per frame; ms "
+               "per frame)",
                launches["K2"], "vkvolume_tpu_torch/csrc/resample_rows.cu",
                "vkvolume_tpu/render/warp_pallas.py:227"),
         "K3": ("scan_and_relax_multi (x-scan + y-relax)", launches["K3"],

@@ -26,20 +26,35 @@ def dev():
     return torch.device("cuda")
 
 
+def _on_card(a: np.ndarray, dev, offset: int = 0) -> torch.Tensor:
+    """``a`` as a contiguous tensor on the card whose base lies ``offset``
+    bytes past an aligned one (a slice of a larger buffer)."""
+    buf = torch.empty(a.nbytes + offset, dtype=torch.uint8, device=dev)
+    t = buf[offset:].view(torch.from_numpy(a).dtype).view(a.shape)
+    t.copy_(torch.from_numpy(a))
+    return t
+
+
 # Tile edges of the line kernels: X and Y off multiples of the tile width
 # (and of 4), Z = 1, and z lines of 3000 cells, longer than one table holds
-# (segments with halos).
-@pytest.mark.parametrize("shape,p,cap", [((9, 11, 13), 0.1, 63),
-                                         ((13, 7, 140), 0.03, 63),
-                                         ((24, 32, 40), 0.004, 15),
-                                         ((5, 7, 33), 0.05, 63),
-                                         ((1, 37, 70), 0.05, 63),
-                                         ((3000, 2, 3), 0.002, 63)])
-def test_distance_kernels_bit_exact(dev, shape, p, cap):
+# (segments with halos). K3: cap 255 (8 levels, a 255-row halo), a 520 x
+# 520 plane (x tiled), y lines of 3000 cells (segments with a halo of cap)
+# and an input whose base is not 4-byte aligned (byte loads).
+@pytest.mark.parametrize("shape,p,cap,offset", [
+    ((9, 11, 13), 0.1, 63, 0), ((13, 7, 140), 0.03, 63, 0),
+    ((24, 32, 40), 0.004, 15, 0), ((5, 7, 33), 0.05, 63, 0),
+    ((1, 37, 70), 0.05, 63, 0), ((3000, 2, 3), 0.002, 63, 0),
+    ((9, 11, 13), 0.1, 255, 0), ((2, 520, 520), 0.0005, 63, 0),
+    ((2, 520, 520), 0.0005, 255, 0), ((1, 3000, 5), 0.001, 63, 0),
+    ((1, 3000, 8), 0.0005, 255, 0), ((13, 7, 140), 0.03, 1, 0),
+    ((13, 7, 140), 0.03, 63, 1), ((4, 40, 64), 0.01, 63, 3)])
+def test_distance_kernels_bit_exact(dev, shape, p, cap, offset):
     rng = np.random.default_rng(0)
-    occ = torch.tensor(np.where(rng.random(shape) < p, 0, 255)
-                       .astype(np.uint8), device=dev)
+    occ = _on_card(np.where(rng.random(shape) < p, 0, 255).astype(np.uint8),
+                   dev, offset)
+    before = distance_cuda.LAUNCHES["scan_and_relax_multi"]
     xy = distance_cuda.scan_and_relax_multi(occ, cap)
+    assert distance_cuda.LAUNCHES["scan_and_relax_multi"] == before + 1
     torch.testing.assert_close(xy, distance.scan_and_relax_multi(occ, cap),
                                rtol=0, atol=0)
     torch.testing.assert_close(distance_cuda.relax_z_direct_multi(xy),
@@ -92,6 +107,54 @@ def test_resample_rows_kernel(dev, u16, encode):
     else:
         scale = 65535.0 if u16 else 1.0
         assert float((got - want).abs().max()) <= 1e-6 * scale
+
+
+def _warp_case(rng, variant, C, Hi, Wi, H, W):
+    """Random grid channels in [0, 1] (a count channel of integers as the
+    fourth) and pass positions with masked cells and both clamps touched,
+    for warp variant A or B; the scales the frame gives them."""
+    chans = rng.random((C, Hi, Wi)).astype(np.float32)
+    if C == 4:
+        chans[3] = rng.integers(0, 1700, (Hi, Wi))
+    Hp = -(-H // 128) * 128
+
+    def pos(lines, n_pos, n_src):
+        q = rng.uniform(-3.0, n_src + 2.0, (lines, n_pos)).astype(np.float32)
+        q[rng.random((lines, n_pos)) < 0.1] = -10.0
+        return q
+
+    if variant == "A":
+        p1, p2 = pos(Hi, W, Wi), pos(W, Hp, Hi)
+    else:
+        p1, p2 = pos(Wi, Hp, Hi), pos(Hp, W, Wi)
+    return chans, p1, p2, ([65535.0] * 3 + [1.0])[:C]
+
+
+# Rows off 32 and off 16 bytes: Hi and Wi odd (u16 and f32 rows), H off
+# the padding.
+@pytest.mark.parametrize("C", [3, 4])
+@pytest.mark.parametrize("variant", ["A", "B"])
+@pytest.mark.parametrize("Hi,Wi,H,W", [(67, 77, 50, 90), (40, 33, 130, 61)])
+def test_warp_two_pass_kernels(dev, variant, C, Hi, Wi, H, W):
+    """The two-pass warp (two K2 launches) against its plain version:
+    u16 within 1 LSB per pass, so the decoded output within 1 LSB of each
+    channel's scale (plus 1e-6 of it); the measured maximum is printed."""
+    rng = np.random.default_rng(Hi + C)
+    chans, p1, p2, scales = _warp_case(rng, variant, C, Hi, Wi, H, W)
+    args = [torch.tensor(a, device=dev) for a in (chans, p1, p2)]
+    fused, plain = ((warp_cuda.warp_two_pass_b, warp_cuda.warp_two_pass_b_plain)
+                    if variant == "B" else
+                    (warp_cuda.warp_two_pass, warp_cuda.warp_two_pass_plain))
+    before = warp_cuda.LAUNCHES["resample_rows"]
+    got = fused(*args, scales=scales)
+    assert warp_cuda.LAUNCHES["resample_rows"] == before + 2
+    want = plain(*args, scales=scales)
+    assert got.shape == want.shape == (C, -(-H // 128) * 128, W)
+    sc = torch.tensor(scales, device=dev)[:, None]
+    err = ((got - want).abs().reshape(C, -1).amax(1) * sc[:, 0]).max()
+    print(f"two-pass warp {variant}, C={C}: max error "
+          f"{float(err):.3g} LSB of the scale")
+    assert float(err) <= 1.0 + 1e-6 * 65535.0
 
 
 # (dataset, skipmode, slab density): bench.py's aligned intensity-only

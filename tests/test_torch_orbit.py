@@ -77,7 +77,7 @@ def routes(monkeypatch):
 
     spy(sweep_bricks, "sweep_bricks_kernel", "K1")
     spy(sweep_slabs, "sweep_slabs_kernel", "K7")
-    spy(warp_cuda, "resample_rows", "K2")
+    spy(warp_cuda, "resample_pass", "K2")
     spy(warp_cuda, "warp_to_pixels", "K8")
     spy(warp_cuda, "warp_to_pixels_plain", "plain warp")
     return calls

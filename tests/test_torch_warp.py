@@ -145,3 +145,126 @@ def test_wrapper_runs_plain_version_for_cpu_tensors():
     assert warp_cuda.LAUNCHES == before
     np.testing.assert_array_equal(
         got.numpy(), warp_cuda.resample_rows_reference(src, pos).numpy())
+
+
+def _today_two_pass(chans, xa, gy_t, scales):
+    """The two-pass warp as separate steps (encode, resample, transpose,
+    resample, transpose and decode): the composition K2's fused passes
+    replace."""
+    sc = torch.tensor(scales, dtype=torch.float32)[:, None, None]
+    enc = torch.round(torch.clamp(chans * sc, 0.0, 65535.0)).to(torch.uint16)
+    t = warp_cuda.resample_rows_reference(enc, xa, encode_out=True)
+    out_t = warp_cuda.resample_rows_reference(t.transpose(1, 2).contiguous(),
+                                              gy_t)
+    return out_t.transpose(1, 2) / sc
+
+
+def _today_two_pass_b(chans, yb, gx_p, scales):
+    sc = torch.tensor(scales, dtype=torch.float32)[:, None, None]
+    enc = torch.round(torch.clamp(chans.transpose(1, 2) * sc, 0.0,
+                                  65535.0)).to(torch.uint16).contiguous()
+    t = warp_cuda.resample_rows_reference(enc, yb, encode_out=True)
+    return warp_cuda.resample_rows_reference(
+        t.transpose(1, 2).contiguous(), gx_p) / sc
+
+
+def _variant_inputs(variant):
+    """(chans, pass-1 positions, pass-2 positions, H) of the homography
+    case for warp variant A or B, as the frame builds them."""
+    hc, plan, chans, gx, gy, H, W = _homography_case()
+    Hi, Wi = plan["Hi"], plan["Wi"]
+    Hp = -(-H // 128) * 128
+    if variant == "B":
+        xg, ii = np.meshgrid(np.arange(Wi, dtype=np.float64),
+                             np.arange(Hp, dtype=np.float64), indexing="ij")
+        yb, jhat = plan_mod.pass_b1_positions_np(hc, plan, xg, ii)
+        ok = (np.isfinite(yb) & (jhat >= -16.0) & (jhat <= W + 15.0)
+              & (ii < H))
+        pos1 = np.where(ok, yb, -10.0).astype(np.float32)
+        pos2 = np.full((Hp, W), -10.0, np.float32)
+        pos2[:H] = gx
+    else:
+        yg, j = np.meshgrid(np.arange(Hi, dtype=np.float64),
+                            np.arange(W, dtype=np.float64), indexing="ij")
+        xa, ihat = plan_mod.pass_a_positions_np(hc, plan, yg, j)
+        ok = np.isfinite(xa) & (ihat >= -16.0) & (ihat <= H + 15.0)
+        pos1 = np.where(ok, xa, -10.0).astype(np.float32)
+        pos2 = np.full((W, Hp), -10.0, np.float32)
+        pos2[:, :H] = gy.T
+    return chans, pos1, pos2, H
+
+
+@pytest.mark.parametrize("C", [3, 4])
+@pytest.mark.parametrize("variant", ["A", "B"])
+def test_fused_passes_compose_to_todays_warp_and_jax(variant, C):
+    """The plain fused passes (encode on load, transposed output, decode)
+    give the separate-step warp bit for bit, and the JAX warp within the
+    u16 quantisation; C = 4 adds a count channel warped at scale 1."""
+    chans, pos1, pos2, H = _variant_inputs(variant)
+    scales = [65535.0] * 3
+    if C == 4:
+        count = np.random.default_rng(9).integers(0, 400, chans.shape[1:])
+        chans = np.concatenate([chans, count[None].astype(np.float32)])
+        scales = scales + [1.0]
+    args = [torch.tensor(a) for a in (chans, pos1, pos2)]
+    if variant == "B":
+        today = _today_two_pass_b(*args, scales)
+        plain = warp_cuda.warp_two_pass_b_plain(*args, scales=scales)
+        got = warp_cuda.warp_two_pass_b(*args, scales=scales)
+        want = jwp.warp_two_pass_b(*[jnp.asarray(a) for a in
+                                     (chans, pos1, pos2)],
+                                   RECT_A=256, RECT_B=256, scales=scales,
+                                   interpret=True)
+    else:
+        today = _today_two_pass(*args, scales)
+        plain = warp_cuda.warp_two_pass_plain(*args, scales=scales)
+        got = warp_cuda.warp_two_pass(*args, scales=scales)
+        want = jwp.warp_two_pass(*[jnp.asarray(a) for a in
+                                   (chans, pos1, pos2)],
+                                 RECT_A=256, RECT_B=256, scales=scales,
+                                 interpret=True)
+    assert plain.is_contiguous() and plain.shape == today.shape
+    np.testing.assert_array_equal(plain.numpy(), today.numpy())
+    np.testing.assert_array_equal(got.numpy(), plain.numpy())
+    want = np.asarray(want)
+    assert got.shape == want.shape
+    assert np.abs(got[:3].numpy() - want[:3]).max() < 2e-4
+    if C == 4:
+        # The count channel at scale 1: within one count per pass.
+        assert np.abs(got[3].numpy() - want[3]).max() <= 2.0
+        assert float(got[3, :H].max()) > 0.0
+
+
+@pytest.mark.parametrize("column_src,transpose_out", [(False, True),
+                                                      (True, True),
+                                                      (True, False)])
+def test_resample_pass_options_match_separate_steps(column_src,
+                                                    transpose_out):
+    """One plain pass with its options against the separate steps; the
+    wrapper's checks of the options."""
+    rng = np.random.default_rng(11)
+    C, lines, n_src, n_pos = 3, 12, 37, 40
+    src = rng.random((C, n_src, lines) if column_src else (C, lines, n_src))
+    src = torch.tensor(src.astype(np.float32))
+    pos = torch.tensor(_positions(12, lines, n_pos, n_src))
+    scales = [65535.0, 300.0, 1.0]
+    got = warp_cuda.resample_pass(src, pos, encode_out=True, scales_in=scales,
+                                  column_src=column_src,
+                                  transpose_out=transpose_out)
+    s = src.transpose(1, 2) if column_src else src
+    sc = torch.tensor(scales)[:, None, None]
+    enc = torch.round(torch.clamp(s * sc, 0.0, 65535.0)).to(torch.uint16)
+    want = warp_cuda.resample_rows_reference(enc, pos, encode_out=True)
+    want = want.transpose(1, 2) if transpose_out else want
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    dec = warp_cuda.resample_pass(enc, pos, scales_out=scales,
+                                  transpose_out=transpose_out)
+    want = warp_cuda.resample_rows_reference(enc, pos) / sc
+    want = want.transpose(1, 2) if transpose_out else want
+    np.testing.assert_array_equal(dec.numpy(), want.numpy())
+    for kw in (dict(scales_in=scales[:2]), dict(scales_out=scales,
+                                                 encode_out=True)):
+        with pytest.raises(ValueError):
+            warp_cuda.resample_pass(src, pos, column_src=column_src, **kw)
+    with pytest.raises(ValueError):
+        warp_cuda.resample_pass(enc, pos, scales_in=scales)

@@ -16,8 +16,9 @@ host schedules src/compute_distance_map.cpp:142-175 and :229-252):
 
 This module is the plain version of the kernels in ``distance_cuda.py``
 (K3 = one-sided x-scan + y-relax, K4 = z-relax, K5 = two-sided x-scan +
-y-relax); ``relax_search``, ``relax_walk`` and ``axis_scan_linear`` state
-the kernels' own algorithms for the tests. Occupancy convention:
+y-relax); ``relax_search``, ``relax_walk``, ``axis_scan_linear`` and
+``scan_and_relax_multi_tiled`` state the kernels' own algorithms for the
+tests. Occupancy convention:
 OCCUPIED = 0, EMPTY = 255. Isotropic maps are uncapped (values up to
 255); only the octant maps take ``ANISO_CAP``.
 """
@@ -221,6 +222,36 @@ def scan_and_relax_multi(occ_u8: torch.Tensor,
         for sy in (1, -1):
             outs.append(relax(g, 1, sy).to(torch.uint8))
     return torch.stack(outs)
+
+
+def scan_and_relax_multi_tiled(occ_u8: torch.Tensor, cap: int = ANISO_CAP,
+                               *, columns: int, seg_len: int,
+                               run: int) -> torch.Tensor:
+    """``scan_and_relax_multi`` as K3's kernel computes it (u8 out; the
+    tests hold it against ``scan_and_relax_multi``): tiles of ``columns``
+    x-columns and segments of ``seg_len`` y-rows. Per tile, each x-scan
+    sense runs its linear pass (``axis_scan_linear``) over the tile's
+    columns and only the ``cap - 1`` cells beyond them on its own side
+    (a cell further out adds at least ``cap``), capped; each segment's
+    lines are relaxed from ``cap`` rows out on both sides (no window of
+    values <= cap reaches further) by ``relax_walk`` in each y sense, in
+    runs of ``run`` cells. Scan-major, as (4, Z, Y, X)."""
+    Z, Y, X = occ_u8.shape
+    out = torch.empty((4, Z, Y, X), dtype=torch.uint8, device=occ_u8.device)
+    for c0 in range(0, X, columns):
+        c1 = min(X, c0 + columns)
+        for s0 in range(0, Y, seg_len):
+            s1 = min(Y, s0 + seg_len)
+            lo, hi = max(0, s0 - cap), min(Y, s1 + cap)
+            for i, sx in enumerate((1, -1)):
+                xa, xb = ((c0, min(X, c1 + cap - 1)) if sx > 0
+                          else (max(0, c0 - cap + 1), c1))
+                g = axis_scan_linear(occ_u8[:, lo:hi, xa:xb], 2, sx)
+                g = g[..., c0 - xa:c1 - xa].clamp(max=cap)
+                for j, sy in enumerate((1, -1)):
+                    out[2 * i + j, :, s0:s1, c0:c1] = relax_walk(
+                        g, 1, sy, run)[:, s0 - lo:s1 - lo]
+    return out
 
 
 def relax_z_direct_multi(xys: torch.Tensor) -> torch.Tensor:

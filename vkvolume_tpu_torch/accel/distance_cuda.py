@@ -89,21 +89,20 @@ def isotropic_distance_cuda(occ_u8: torch.Tensor) -> torch.Tensor:
 def scan_and_relax_multi(occ_u8: torch.Tensor,
                          cap: int = distance.ANISO_CAP) -> torch.Tensor:
     """K3: the four (x-scan ± capped at ``cap``) × (y-relax ±) maps of a
-    (Z, Y, X) u8 occupancy map, scan-major, as (4, Z, Y, X) u8."""
+    (Z, Y, X) u8 occupancy map, scan-major, as (4, Z, Y, X) u8, in one
+    launch (the x-scans stay in shared memory). ``cap`` in [1, 255]."""
+    if not 1 <= cap <= 255:
+        raise ValueError(f"cap {cap}: expected 1 to 255")
     if occ_u8.device.type == "cpu":
         return distance.scan_and_relax_multi(occ_u8, cap)
     _require_zyx("occ_u8", occ_u8)
     lib = cuda_build.load_kernels()
     Z, Y, X = occ_u8.shape
-    xs = torch.empty((2, Z, Y, X), dtype=torch.uint8, device=occ_u8.device)
     out = torch.empty((4, Z, Y, X), dtype=torch.uint8, device=occ_u8.device)
-    s = cuda_build.stream()
-    cuda_build.check(lib.vkv_x_scan(occ_u8.data_ptr(), xs[0].data_ptr(),
-                                    xs[1].data_ptr(), Z, Y, X, int(cap), s),
-                     "x_scan")
-    cuda_build.check(lib.vkv_y_relax4(xs[0].data_ptr(), xs[1].data_ptr(),
-                                      out.data_ptr(), Z, Y, X, s),
-                     "y_relax4")
+    cuda_build.check(lib.vkv_scan_relax4(occ_u8.data_ptr(), out.data_ptr(),
+                                         Z, Y, X, int(cap),
+                                         cuda_build.stream()),
+                     "scan_relax4")
     LAUNCHES["scan_and_relax_multi"] += 1
     return out
 

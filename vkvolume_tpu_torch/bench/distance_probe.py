@@ -26,7 +26,9 @@ the answer takes (each output cell's distance per loop: the sum that
 steps per output cell, ps per step, and the card. Then each path's
 ``map_update_ms`` (one TF edit: occupancy + distance maps; bench.py's
 engine: the median of its benchmark-mode means over 20 queued builds;
-the CLI's: the median of 5 CUDA-event means over 20 builds), and the
+the CLI's: the median of 5 CUDA-event means over 20 builds), each split
+into the card's time for the plain occupancy map, the distance kernels
+and the whole build (``edit_breakdown``; the rest is host time), and the
 ptxas lines (registers, spills) of ``csrc/distance.cu`` from this
 process's build (none when the library was already built). Needs a CUDA
 device.
@@ -100,6 +102,24 @@ def occupancy(volume, use_gradient: bool) -> torch.Tensor:
                          volume.map_shape_zyx, ti, tg)
 
 
+def edit_breakdown(volume, use_gradient: bool, map_update_ms: float) -> dict:
+    """One TF edit's map build split on the card (``device_ms``, 20
+    builds): the plain occupancy map alone, the distance kernels alone
+    and the whole build; the rest of ``map_update_ms`` (the host clock
+    over queued builds) is time the card waits for the host."""
+    from ..accel import distance_cuda as dc
+
+    occ = occupancy(volume, use_gradient)
+    maps = (dc.isotropic_distance_cuda if use_gradient
+            else dc.anisotropic_distance_cuda)
+    build = device_ms(lambda: maps(occupancy(volume, use_gradient)), 20)
+    return {"occupancy": device_ms(lambda: occupancy(volume, use_gradient),
+                                   20),
+            "distance_kernels": device_ms(lambda: maps(occ), 20),
+            "build": build, "map_update_ms": map_update_ms,
+            "host_rest": map_update_ms - build}
+
+
 def kernel_rows(occ3: torch.Tensor, occ2: torch.Tensor):
     """(label, wrapper call, its plain version, steps, output cells) of
     every probed kernel."""
@@ -111,9 +131,10 @@ def kernel_rows(occ3: torch.Tensor, occ2: torch.Tensor):
     iso = dc.relax_z_direct(xy2[0])
     xs2 = dp.axis_scan(occ2, 2, 0).clamp(max=255).to(torch.uint8)
     ys2 = dc.relax(xs2, 1, 0)
-    # Steps: K3 and K5 run an x-scan loop and a y-relax loop per output
-    # cell, each bounded by the output; a two-sided loop takes two senses
-    # per step.
+    # Steps of per-cell loops that stop at the answer (the kernels'
+    # earlier design): an x-scan loop and a y-relax loop per output cell,
+    # each bounded by the output; a two-sided loop takes two senses per
+    # step.
     return [
         ("K3", lambda: dc.scan_and_relax_multi(occ3),
          lambda: dp.scan_and_relax_multi(occ3), 2 * total(xy3), xy3.numel()),
@@ -172,6 +193,8 @@ def main(argv=None) -> int:
     update_ms = {"bench.py (skipmode 3)": statistics.median(
         eng3.update_transfer_function(eng3.volumes[0]).map_update_ms
         for _ in range(REPS))}
+    split = edit_breakdown(eng3.volumes[0], False,
+                           update_ms["bench.py (skipmode 3)"])
     del eng3
     eng2, vols = cli.setup_engine(cli.build_parser().parse_args(
         ["--synth", "beetle"]))
@@ -204,6 +227,10 @@ def main(argv=None) -> int:
                           "maps": list(occ3.shape), "device": device,
                           "card": card}), flush=True)
     print(json.dumps({"map_update_ms": update_ms, "device": device,
+                      "card": card}), flush=True)
+    split["CLI (skipmode 2)"] = edit_breakdown(
+        eng2.volumes[0], True, update_ms["CLI (skipmode 2)"])
+    print(json.dumps({"tf_edit_breakdown_ms": split, "device": device,
                       "card": card}), flush=True)
     for ln in ptxas_lines(build_log) or ["(library built by an earlier "
                                          "process: no ptxas report)"]:

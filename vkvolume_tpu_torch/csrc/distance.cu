@@ -19,8 +19,9 @@
 //       is a stride.
 //
 // K4, K5 and K6 are one kernel, relax_lines_kernel, instantiated per
-// sense (and, for K5, with the x-scan as its prologue). K3 keeps the
-// per-cell loops of x_scan_kernel and y_relax4_kernel.
+// sense (and, for K5, with the x-scan as its prologue). K3 is its sibling,
+// scan_relax4_kernel: the same tables, search and step, two tables (one
+// per x-scan sense) and four walks per thread.
 //
 // The relaxation A[l] = min_{n >= 0, in bounds} max(n, D[l + s n]) in one
 // sense s is computed without a loop as long as the distance. (Two-sided:
@@ -56,66 +57,21 @@
 // 4, shrunk until the table fits 100 KB; runs of ceil(L / (512 / C))
 // cells. Integer arithmetic throughout, as the TPU kernels: exact, so
 // kernel and plain version agree bit for bit.
+//
+// K3's values are capped (cap <= 255, ANISO_CAP = 63 on the engine's
+// path), which shrinks all of this: a one-sided x-scan needs only the
+// cap - 1 cells beyond the block's columns on its own side (a cell further
+// out adds at least cap), no relaxation window of values <= cap spans more
+// than cap cells (levels_for(cap) levels: 6 at 63, not 8), and a segment
+// of a long line needs a halo of cap rows, not 255. Its block holds two
+// tables, one per x-scan sense, level-interleaved (level k of the +x
+// table, then level k of the -x table), and each thread walks its run
+// four times (both y senses of both tables, four independent chains).
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
-
-constexpr int kThreads = 256;
-
-__global__ void x_scan_kernel(const uint8_t* __restrict__ occ,
-                              uint8_t* __restrict__ xs_pos,
-                              uint8_t* __restrict__ xs_neg,
-                              long long n_cells, int X, int cap) {
-  long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (i >= n_cells) return;
-  const int x = (int)(i % X);
-  const uint8_t* row = occ + (i - x);
-  const int v = row[x];
-  // +x: g[x] = min_{x' >= x} occ[x'] + (x' - x), capped.
-  int best = v;
-  for (int k = 1; k < min(best, cap) && x + k < X; ++k)
-    best = min(best, (int)row[x + k] + k);
-  xs_pos[i] = (uint8_t)min(best, cap);
-  // -x: g[x] = min_{x' <= x} occ[x'] + (x - x'), capped.
-  best = v;
-  for (int k = 1; k < min(best, cap) && x - k >= 0; ++k)
-    best = min(best, (int)row[x - k] + k);
-  xs_neg[i] = (uint8_t)min(best, cap);
-}
-
-// A[l] = min_{n >= 0, in bounds} max(n, D[l + dir*n]) along an axis of
-// length L at element stride `stride`; `l` is the cell's index on it.
-__device__ __forceinline__ int relax_cell(const uint8_t* __restrict__ d,
-                                          long long i, int l, int L,
-                                          long long stride, int dir) {
-  int a = d[i];
-  for (int n = 1; n < a; ++n) {
-    const int m = l + dir * n;
-    if (m < 0 || m >= L) break;
-    a = min(a, max(n, (int)d[i + dir * n * stride]));
-  }
-  return a;
-}
-
-__global__ void y_relax4_kernel(const uint8_t* __restrict__ xs_pos,
-                                const uint8_t* __restrict__ xs_neg,
-                                uint8_t* __restrict__ out4,
-                                long long n_cells, int Y, int X) {
-  long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (i >= n_cells) return;
-  const int y = (int)((i / X) % Y);
-  // Scan-major order: (+x,+y), (+x,-y), (-x,+y), (-x,-y).
-  out4[i] = (uint8_t)relax_cell(xs_pos, i, y, Y, X, +1);
-  out4[n_cells + i] = (uint8_t)relax_cell(xs_pos, i, y, Y, X, -1);
-  out4[2 * n_cells + i] = (uint8_t)relax_cell(xs_neg, i, y, Y, X, +1);
-  out4[3 * n_cells + i] = (uint8_t)relax_cell(xs_neg, i, y, Y, X, -1);
-}
-
-unsigned blocks_for(long long n) {
-  return (unsigned)((n + kThreads - 1) / kThreads);
-}
 
 // ---- relax_lines_kernel (K4, K5, K6) ----------------------------------
 
@@ -209,13 +165,28 @@ __device__ __forceinline__ void scan_row(const uint8_t* __restrict__ row,
   }
 }
 
-// Bytes per staged row of K5's x-scan: the block's columns and 255 cells
-// on each side, padded to an odd number of words (a thread per row reads
-// its own row: an odd stride keeps the 32 rows of a warp on 32 banks).
-__host__ __device__ int stage_stride(long long X, int c0, int c1) {
-  const int xa = c0 > kHalo ? c0 - kHalo : 0;
-  const long long xb = (long long)c1 + kHalo < X ? c1 + kHalo : X;
-  return ((int)((xb - xa + 3) / 4) | 1) * 4;
+// Bytes per staged row of an x-scan over w cells (the block's columns and
+// the halo), padded to an odd number of words (a thread per row reads its
+// own row: an odd stride keeps the 32 rows of a warp on 32 banks).
+__host__ __device__ int stage_stride(int w) { return ((w + 3) / 4 | 1) * 4; }
+
+// Rows [0, nb) of w cells (row m at src + m * pitch) into shared memory
+// (row m at stage + m * W), one warp per row: coalesced loads, a byte
+// each, or a word each when `words` (src, pitch, w and W multiples of 4).
+__device__ __forceinline__ void stage_rows(const uint8_t* __restrict__ src,
+                                           long long pitch, int nb, int w,
+                                           uint8_t* __restrict__ stage,
+                                           int W, bool words) {
+  if (words) {
+    for (int m = threadIdx.x / 32; m < nb; m += kLineThreads / 32)
+      for (int x = threadIdx.x % 32; x < w / 4; x += 32)
+        reinterpret_cast<uint32_t*>(stage + m * W)[x] =
+            reinterpret_cast<const uint32_t*>(src + m * pitch)[x];
+    return;
+  }
+  for (int m = threadIdx.x / 32; m < nb; m += kLineThreads / 32)
+    for (int x = threadIdx.x % 32; x < w; x += 32)
+      stage[m * W + x] = src[m * pitch + x];
 }
 
 // Lines of length L at stride `inner` (outer x L x inner maps, n_maps of
@@ -250,16 +221,15 @@ relax_lines_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
     // levels, not built yet), then one thread per row.
     const int X = (int)inner, c1 = (int)c0 + cw;
     const int xa = max(0, (int)c0 - kHalo), xb = min(X, c1 + kHalo);
-    const int W = stage_stride(X, (int)c0, c1);
+    const int W = stage_stride(xb - xa);
     uint8_t* stage = lev + T * C;
     const int batch = stage_bytes / W;
     const uint8_t* row0 = in + line0 - c0 + (long long)lo * inner + xa;
     for (int b0 = 0; b0 < T; b0 += batch) {
       const int nb = min(batch, T - b0);
       __syncthreads();
-      for (int m = threadIdx.x / 32; m < nb; m += kLineThreads / 32)
-        for (int x = threadIdx.x % 32; x < xb - xa; x += 32)
-          stage[m * W + x] = row0[(long long)(b0 + m) * inner + x];
+      stage_rows(row0 + (long long)b0 * inner, inner, nb, xb - xa, stage, W,
+                 false);
       __syncthreads();
       for (int m = threadIdx.x; m < nb; m += kLineThreads)
         scan_row(stage + m * W, xa, xb, (int)c0, c1, lev + (b0 + m) * C);
@@ -378,7 +348,8 @@ Tiling plan_tiles(int L, long long inner) {
   t.run = (rows + runs - 1) / runs;
   t.smem = (size_t)(t.n_levels + 1) * T * t.C;
   // K5 stages at least one row of its x-scan above level 0.
-  const size_t row = stage_stride(inner, kHalo, kHalo + t.C);  // widest
+  const size_t row = stage_stride(
+      (int)(inner < t.C + 2 * kHalo ? inner : t.C + 2 * kHalo));  // widest
   if (t.smem < (size_t)T * t.C + row) t.smem = (size_t)T * t.C + row;
   t.stage_bytes = (int)(t.smem - (size_t)T * t.C);
   return t;
@@ -411,24 +382,187 @@ int launch_lines(const uint8_t* in, uint8_t* out, int n_maps, int outer,
   return (int)cudaGetLastError();
 }
 
-}  // namespace
+// ---- scan_relax4_kernel (K3) --------------------------------------------
 
-extern "C" int vkv_x_scan(const void* occ, void* xs_pos, void* xs_neg,
-                          int Z, int Y, int X, int cap, void* stream) {
-  const long long n = (long long)Z * Y * X;
-  if (n == 0) return 0;
-  x_scan_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)occ, (uint8_t*)xs_pos, (uint8_t*)xs_neg, n, X, cap);
-  return (int)cudaGetLastError();
+// K3's one-sided x-scan of one staged row (cells from x = xa), capped at
+// cap, into dst[x - c0] for the block's columns x in [c0, c1): S = kPlus
+// g = min(occ[x], g[x + 1] + 1) from x = xb - 1 down, kMinus
+// g = min(occ[x], g[x - 1] + 1) from xa up. xb >= min(X, c1 + cap - 1) and
+// xa <= max(0, c0 - cap + 1): a cell further out adds at least cap, so the
+// capped value is exact.
+template <int S>
+__device__ __forceinline__ void scan_row_capped(const uint8_t* __restrict__ row,
+                                                int xa, int xb, int c0,
+                                                int c1, int cap,
+                                                uint8_t* __restrict__ dst) {
+  int g = kBig;
+  if constexpr (S == kPlus) {
+    for (int x = xb - 1; x >= c1; --x) g = min((int)row[x - xa], g + 1);
+    for (int x = c1 - 1; x >= c0; --x) {
+      g = min((int)row[x - xa], g + 1);
+      dst[x - c0] = (uint8_t)min(g, cap);
+    }
+  } else {
+    for (int x = xa; x < c0; ++x) g = min((int)row[x - xa], g + 1);
+    for (int x = c0; x < c1; ++x) {
+      g = min((int)row[x - xa], g + 1);
+      dst[x - c0] = (uint8_t)min(g, cap);
+    }
+  }
 }
 
-extern "C" int vkv_y_relax4(const void* xs_pos, const void* xs_neg,
-                            void* out4, int Z, int Y, int X, void* stream) {
-  const long long n = (long long)Z * Y * X;
-  if (n == 0) return 0;
-  y_relax4_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)xs_pos, (const uint8_t*)xs_neg, (uint8_t*)out4, n, Y,
-      X);
+// K3: lines of length L (y) at stride X in a (Z, L, X) occupancy map. Block:
+// C columns of one z, one segment of seg_len rows (tile rows [lo, hi) with
+// a halo of cap). Level 0 of the +x table is the capped +x scan, of the -x
+// table the -x scan; outputs scan-major ((+x,+y), (+x,-y), (-x,+y),
+// (-x,-y)), each written once.
+__global__ void __launch_bounds__(kLineThreads, 2)
+scan_relax4_kernel(const uint8_t* __restrict__ occ, uint8_t* __restrict__ out,
+                   long long n_cells, int L, int X, int cap, int C,
+                   int seg_len, int n_levels, int n_chunks, int run,
+                   int stage_bytes, int words) {
+  extern __shared__ uint32_t table_words[];
+  uint8_t* lev = reinterpret_cast<uint8_t*>(table_words);
+
+  const int ch = (int)(blockIdx.x % n_chunks);
+  const long long plane = (long long)(blockIdx.x / n_chunks) * L * X;
+  const int c0 = ch * C, cw = min(C, X - c0), c1 = c0 + cw;
+  const int s0 = blockIdx.y * seg_len, s1 = min(L, s0 + seg_len);
+  const int lo = max(0, s0 - cap), hi = min(L, s1 + cap);
+  const int T = hi - lo, TC = T * C;
+
+  // Rows staged above both level-0 tables (where the upper levels go
+  // later), batch by batch; then thread m scans row m in the + sense and
+  // thread nb + m in the - sense. The staged span is cap - 1 cells each
+  // side, widened to whole words (more cells never change a capped scan).
+  const int xa = max(0, c0 - (cap - 1)) & ~3;
+  const int xb = min(X, (c1 + cap - 1 + 3) & ~3);
+  const int W = stage_stride(xb - xa);
+  uint8_t* stage = lev + 2 * TC;
+  const int batch = stage_bytes / W;
+  const uint8_t* row0 = occ + plane + (long long)lo * X + xa;
+  for (int b0 = 0; b0 < T; b0 += batch) {
+    const int nb = min(batch, T - b0);
+    __syncthreads();
+    stage_rows(row0 + (long long)b0 * X, X, nb, xb - xa, stage, W, words);
+    __syncthreads();
+    for (int i = threadIdx.x; i < 2 * nb; i += kLineThreads) {
+      if (i < nb)
+        scan_row_capped<kPlus>(stage + i * W, xa, xb, c0, c1, cap,
+                               lev + (b0 + i) * C);
+      else
+        scan_row_capped<kMinus>(stage + (i - nb) * W, xa, xb, c0, c1, cap,
+                                lev + TC + (b0 + i - nb) * C);
+    }
+  }
+
+  // Level k of both tables (windows of 2^k cells, rows [0, T - 2^k]).
+  const int C4 = C / 4, TC4 = T * C4;
+  for (int k = 1; k < n_levels; ++k) {
+    const int rows = T - (1 << k) + 1;
+    if (rows <= 0) break;
+    __syncthreads();
+    const uint32_t* src = table_words + (long long)(k - 1) * 2 * TC4;
+    uint32_t* dst = table_words + (long long)k * 2 * TC4;
+    const int half = (1 << (k - 1)) * C4, n = rows * C4;
+    for (int i = threadIdx.x; i < 2 * n; i += kLineThreads) {
+      const int j = i < n ? i : i - n + TC4;
+      dst[j] = __vminu4(src[j], src[j + half]);
+    }
+  }
+  __syncthreads();
+
+  // Each thread walks one run of one column four times at once: both y
+  // senses of both tables, each run's first cell by the search, every
+  // next by one step.
+  const int c = threadIdx.x % C, r = threadIdx.x / C;
+  const int ma = s0 - lo + r * run, mb = min(s1 - lo, ma + run);
+  if (c >= cw || r >= kLineThreads / C || ma >= mb) return;
+  const int LS = 2 * TC;  // level stride of each table
+  const uint8_t* colp = lev + c;       // the +x scan's table
+  const uint8_t* coln = lev + TC + c;  // the -x scan's
+  const long long g0 = plane + (long long)lo * X + c0 + c;
+  uint8_t* pu = out + g0 + (long long)(mb - 1) * X;
+  uint8_t* pd = out + n_cells + g0 + (long long)ma * X;
+  uint8_t* nu = out + 2 * n_cells + g0 + (long long)(mb - 1) * X;
+  uint8_t* nd = out + 3 * n_cells + g0 + (long long)ma * X;
+  int ap = search<kPlus>(colp, LS, T, C, mb - 1);
+  int am = search<kMinus>(colp, LS, T, C, ma);
+  int bp = search<kPlus>(coln, LS, T, C, mb - 1);
+  int bm = search<kMinus>(coln, LS, T, C, ma);
+  for (int i = 0;; ++i, pu -= X, pd += X, nu -= X, nd += X) {
+    *pu = (uint8_t)ap;
+    *pd = (uint8_t)am;
+    *nu = (uint8_t)bp;
+    *nd = (uint8_t)bm;
+    if (ma + i + 1 >= mb) break;
+    ap = step<kPlus>(colp, LS, T, C, mb - 2 - i, ap);
+    am = step<kMinus>(colp, LS, T, C, ma + 1 + i, am);
+    bp = step<kPlus>(coln, LS, T, C, mb - 2 - i, bp);
+    bm = step<kMinus>(coln, LS, T, C, ma + 1 + i, bm);
+  }
+}
+
+// K3's tiles: as plan_tiles, for two tables of levels_for(min(T, cap))
+// levels each, segments with a halo of cap, and at least one staged row
+// of C + 2 (cap - 1) cells (+ 6 for the widening to words) above level 0.
+Tiling plan_scan_tiles(int L, int X, int cap) {
+  auto tables = [cap](int T, int C) {
+    return (size_t)2 * levels_for(T < cap ? T : cap) * T * C;
+  };
+  Tiling t{};
+  int T = L;
+  for (int cmax = kMaxColumns; cmax >= 4; cmax /= 2) {
+    const int nch = (X + cmax - 1) / cmax;
+    t.C = ((X + nch - 1) / nch + 3) / 4 * 4;
+    if (tables(L, t.C) <= (size_t)kTableBytes) break;
+  }
+  t.seg_len = L;
+  if (tables(L, t.C) > (size_t)kTableBytes) {
+    T = kTableBytes / (2 * levels_for(cap) * t.C);
+    t.seg_len = T - 2 * cap;
+  }
+  t.n_segs = (L + t.seg_len - 1) / t.seg_len;
+  t.n_levels = levels_for(T < cap ? T : cap);
+  t.n_chunks = (X + t.C - 1) / t.C;
+  const int runs = kLineThreads / t.C;
+  const int rows = L < t.seg_len ? L : t.seg_len;
+  t.run = (rows + runs - 1) / runs;
+  const size_t level0 = (size_t)2 * T * t.C;
+  const size_t row = stage_stride(t.C + 2 * (cap - 1) + 6);
+  t.smem = tables(T, t.C);
+  if (t.smem < level0 + row) t.smem = level0 + row;
+  t.stage_bytes = (int)(t.smem - level0);
+  return t;
+}
+
+}  // namespace
+
+// K3: the four (+-x scan capped at cap) x (+-y relaxation) maps of a
+// (Z, Y, X) occupancy map, scan-major, one launch. cap in [1, 255].
+extern "C" int vkv_scan_relax4(const void* occ, void* out4, int Z, int Y,
+                               int X, int cap, void* stream) {
+  if (cap < 1 || cap > 255) return (int)cudaErrorInvalidValue;
+  const long long n_cells = (long long)Z * Y * X;
+  if (n_cells == 0) return 0;
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        scan_relax4_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kMaxSharedBytes);
+    if (e != cudaSuccess) return (int)e;
+    attr_set = true;
+  }
+  const Tiling t = plan_scan_tiles(Y, X, cap);
+  const long long nx = t.n_chunks * Z;
+  if (nx > 0x7fffffffLL || t.n_segs > 65535)
+    return (int)cudaErrorInvalidConfiguration;
+  // Word loads need every staged row 4-byte aligned.
+  const int words = X % 4 == 0 && reinterpret_cast<uintptr_t>(occ) % 4 == 0;
+  dim3 grid((unsigned)nx, (unsigned)t.n_segs);
+  scan_relax4_kernel<<<grid, kLineThreads, t.smem, (cudaStream_t)stream>>>(
+      (const uint8_t*)occ, (uint8_t*)out4, n_cells, Y, X, cap, t.C,
+      t.seg_len, t.n_levels, (int)t.n_chunks, t.run, t.stage_bytes, words);
   return (int)cudaGetLastError();
 }
 

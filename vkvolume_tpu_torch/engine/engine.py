@@ -234,7 +234,11 @@ class Engine:
                     result, color=c,
                     depth=torch.maximum(result.depth, out.depth),
                     num_volume_samples=(result.num_volume_samples
-                                        + out.num_volume_samples))
+                                        + out.num_volume_samples),
+                    num_distance_samples=(result.num_distance_samples
+                                          + out.num_distance_samples),
+                    num_empty_samples=(result.num_empty_samples
+                                       + out.num_empty_samples))
         return out
 
     def render_volume(self, volume: Volume, camera, width: int,

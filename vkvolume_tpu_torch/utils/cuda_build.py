@@ -76,19 +76,26 @@ class SlabParams(ctypes.Structure):
             "inv_cvox_u", "drift_u", "drift_v", "gmin", "ginv")]
 
 
+class PassParams(ctypes.Structure):
+    """Mirror of ``PassParams`` in csrc/resample_rows.cu (field order and
+    types must match)."""
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "C", "lines", "n_src", "n_pos", "encode", "decode")] + [
+        ("sc", ctypes.c_float * 4)]
+
+
 _SIGNATURES = {
-    # (occ, xs_pos, xs_neg, Z, Y, X, cap, stream)
-    "vkv_x_scan": [_P, _P, _P, _I, _I, _I, _I, _P],
-    # (xs_pos, xs_neg, out4, Z, Y, X, stream)
-    "vkv_y_relax4": [_P, _P, _P, _I, _I, _I, _P],
+    # (occ, out4, Z, Y, X, cap, stream)
+    "vkv_scan_relax4": [_P, _P, _I, _I, _I, _I, _P],
     # (in4, out8, Z, Y, X, stream)
     "vkv_z_relax8": [_P, _P, _I, _I, _I, _P],
     # (occ, out, Z, Y, X, stream)
     "vkv_scan_relax2": [_P, _P, _I, _I, _I, _P],
     # (in, out, Z, Y, X, axis, dir, stream)
     "vkv_relax": [_P, _P, _I, _I, _I, _I, _I, _P],
-    # (src, pos, out, C, Hs, Ws, Wo, src_u16, encode_out, stream)
-    "vkv_resample_rows": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # (src, pos, out, params, src_u16, out_u16, column_src, transpose_out,
+    #  stream)
+    "vkv_resample_pass": [_P, _P, _P, PassParams, _I, _I, _I, _I, _P],
     # (wu, wv, s_lo, s_hi, cov, coarse, cskip, kb_occ, cnt, lst, params,
     #  stream)
     "vkv_brick_walk": [_P] * 10 + [BrickParams, _P],
