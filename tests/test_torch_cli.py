@@ -101,16 +101,59 @@ def test_png_is_the_composited_frame(frames):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--renderer", "marcher"], "items 10 and 13"),
-    (["--renderer", "sweep"], "items 10 and 13"),
-    (["--scene"], "item 16"), (["--texture-tf"], "item 3"),
+    (["--renderer", "marcher"], "item 10"), (["--scene"], "item 16"),
     (["--edge-repair"], "items 10 and 11"), (["--sweep"], "item 12"),
-    (["--test", "1"], "item 4"), (["--test", "2"], "item 4"),
     (["--gradient_test"], "item 5")])
 def test_unported_flags_raise(flags, item):
     args = tcli.build_parser().parse_args(["--device", "cpu"] + flags)
     with pytest.raises(NotImplementedError, match=f"ROADMAP queue A, {item}"):
         tcli.setup_engine(args)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--texture-tf"], ["--texture-tf", "--azimuth", "80", "--sampling",
+                       "0.25"],
+    ["--renderer", "sweep"], ["--test", "1"], ["--test", "2"]])
+def test_ported_flags_match_jax_cli(tmp_path, flags):
+    """The texture TF (a brick-sweep view, and the side view the XLA sweep
+    takes), the XLA sweep renderer and the ray entry / exit frames through
+    the port's CLI on the CPU, against the JAX CLI's set-up and frame at
+    scale 0.05 (its Pallas frame in interpret mode)."""
+    w, h = 256, 264
+    args = ["--synth", "beetle", "--synth-scale", "0.05", "--width", str(w),
+            "--height", str(h)] + flags
+    png = str(tmp_path / "port.png")
+    teng, _, tout = tcli.run(args + ["--device", "cpu", "--output", png])
+    jargs = jcli.build_parser().parse_args(args)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jutils, "enable_compile_cache", lambda *a, **k: None)
+        mp.setattr(sweep_pallas, "_frame_jit", functools.partial(
+            sweep_pallas._frame_jit, interpret=True))
+        jeng, jvols = jcli.setup_engine(jargs)
+        for v in jvols:
+            jeng.add_volume(v)
+        aspect = w / h
+        cam = j_orbit_camera(
+            radius=j_fit_distance(50.0, np.deg2rad(60.0), aspect) * 1.3,
+            azimuth_deg=jargs.azimuth, elevation_deg=20.0, aspect=aspect)
+        jout = jeng.render(cam, w, h)
+    route = "pallas" if flags == ["--texture-tf"] else "sweep"
+    assert teng.last_renderer == jeng.last_renderer == route
+    assert teng.options.texture_tf == jeng.options.texture_tf
+    want = np.asarray(jout.color)
+    got = tout.color.numpy()
+    assert got.shape == (h, w, 4) and np.isfinite(got).all()
+    assert (want[..., 3] > 0).mean() > 0.05           # real content
+    if "--test" in flags:
+        # Entry / exit positions from the f32 ray set-up (its matrix
+        # products summed in another order): the XLA sweep's 1e-5.
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    else:
+        bad = (np.abs(got - want).max(axis=-1) > 2e-3).mean()
+        assert bad <= 1e-3, bad
+        assert abs(got[..., 3].mean() - want[..., 3].mean()) <= 1e-4
+    np.testing.assert_array_equal(read_png(png),
+                                  to_u8(composite_over(got)))
 
 
 def test_no_cuda_device_fails_loudly():

@@ -321,13 +321,56 @@ def test_brick_kernels_at_tile_h_32(dev, key, skipmode, density, azimuth):
         before = dict(sweep_bricks.LAUNCHES)
         lists = sweep_bricks.brick_walk(inp)
         got = sweep_bricks.sweep_bricks_composite(inp, lists)
-        assert sweep_bricks.LAUNCHES == {k: n + 1 for k, n in before.items()}
+        assert sweep_bricks.LAUNCHES == dict(
+            before, brick_walk=before["brick_walk"] + 1,
+            sweep_bricks=before["sweep_bricks"] + 1)
         want = sweep_bricks.brick_walk_plain(inp)
         assert torch.equal(lists.cnt, want.cnt)
         assert torch.equal(lists.entries(), want.entries())
         assert int(want.cnt.sum()) > 0
         for a, b in zip(got, sweep_bricks.sweep_bricks_reference(inp)):
             assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("key,skipmode,density,aligned", [
+    ("beetle", 3, "auto", True), ("beetle", 2, "ref", False),
+    ("beetle-grad", 2, "axis", True), ("beetle-grad", 2, "auto", False)])
+def test_brick_texture_kernel_bit_exact(dev, key, skipmode, density,
+                                        aligned):
+    """K1's texture-TF variant, aligned and plane-pair lerp, with and
+    without the gradient TF, ERT on and off: the compositing kernel over
+    the walk kernel's lists gives the interleaved plain sweep bit for bit,
+    counts its launch apart, and differs from the closed form."""
+    f = _brick_frame(key, skipmode, density, 30.0)
+    u, p, plan, gp, vol_t, occ_t, tf, grad_t, n_slabs = (
+        f[k] for k in ("u", "p", "plan", "gp", "vol_t", "occ_t", "tf",
+                       "grad_t", "n_slabs"))
+    assert (n_slabs == vol_t.shape[0]) == aligned
+    wu, wv = sweep_frame.w_grid(gp, plan["Hi"], plan["Wi"], dev)
+    sgn = 1 if plan["sgn_p"] > 0 else -1
+    s_lo, s_hi, cov, kappa = sweep_bricks.grid_fields(
+        u, wu, wv, sgn, p, max(vol_t.shape), n_slabs)
+    for ert in (True, False):
+        kw = dict(p_axis=p, ert=ert, count_samples=True, n_slabs=n_slabs,
+                  sgn=sgn, tile_h=plan["tile_h"], dist_leap=True,
+                  grad_t=grad_t)
+        grid = (wu, wv, s_lo, s_hi, kappa, cov)
+        inp = sweep_bricks.brick_inputs(vol_t, occ_t, tf, u, grid,
+                                        texture_tf=True, **kw)
+        before = dict(sweep_bricks.LAUNCHES)
+        lists = sweep_bricks.brick_walk(inp)
+        got = sweep_bricks.sweep_bricks_composite(inp, lists)
+        assert sweep_bricks.LAUNCHES == dict(
+            before, brick_walk=before["brick_walk"] + 1,
+            sweep_bricks_texture=before["sweep_bricks_texture"] + 1)
+        want = sweep_bricks.brick_walk_plain(inp)
+        assert torch.equal(lists.entries(), want.entries())
+        for a, b in zip(got, sweep_bricks.sweep_bricks_reference(inp)):
+            assert torch.equal(a, b)
+        assert int(got[3].sum()) > 0 and float(got[1].max()) > 0.3
+        closed = sweep_bricks.sweep_bricks_kernel(
+            sweep_bricks.brick_inputs(vol_t, occ_t, tf, u, grid, **kw))
+        assert float((closed[1] - got[1]).abs().max()) > 1e-5
 
 
 @pytest.mark.parametrize("flags", [["--sampling", "0.5", "--gmax", "0"],

@@ -101,10 +101,11 @@ def test_unaligned_size_matches_jax_padded_frame(monkeypatch, engines):
 def test_unported_paths_raise(engines):
     """Views the port does not render yet raise, naming their ROADMAP item:
     a wide-FOV camera inside the volume (mixed principal-axis signs need
-    the per-ray marcher) and the ray entry / exit diagnostic frames."""
+    the per-ray marcher). The ray entry / exit diagnostic frames render,
+    as the JAX engine's do, from the ray setup."""
     from vkvolume_tpu_torch.camera import orbit_camera
 
-    _, _, teng, _ = engines
+    jeng, _, teng, _ = engines
     inside = orbit_camera(radius=10.0, azimuth_deg=45, elevation_deg=35,
                           fovy_deg=120.0, aspect=1.0)
     with pytest.raises(NotImplementedError, match="ROADMAP queue A, item 10"):
@@ -112,17 +113,25 @@ def test_unported_paths_raise(engines):
     cam = jh.benchmark_camera(aspect=2.0)
     for test in (TTest.RAY_ENTRY, TTest.RAY_EXIT):
         teng.options.test = test
+        jeng.options.test = JTest(int(test))
         try:
-            with pytest.raises(NotImplementedError,
-                               match="ROADMAP queue A, item 4"):
-                teng.render(cam, 256, 128)
+            got = teng.render(cam, 256, 128)
+            want = jeng.render(cam, 256, 128)
         finally:
             teng.options.test = TTest.NONE
+            jeng.options.test = JTest.NONE
+        assert teng.last_renderer == jeng.last_renderer == "sweep"
+        w = np.asarray(want.color)
+        assert (w[..., 3] > 0).mean() > 0.05
+        np.testing.assert_allclose(got.color.numpy(), w, rtol=0, atol=1e-5)
+        np.testing.assert_array_equal(got.depth.numpy(),
+                                      np.asarray(want.depth))
 
 
 def test_port_never_imports_jax():
     code = ("import sys, vkvolume_tpu_torch, vkvolume_tpu_torch.engine, "
             "vkvolume_tpu_torch.bench, vkvolume_tpu_torch.render.sweep_frame, "
+            "vkvolume_tpu_torch.render.sweep, "
             "vkvolume_tpu_torch.bench.profile_frame, "
             "vkvolume_tpu_torch.interop, vkvolume_tpu_torch.cli, "
             "vkvolume_tpu_torch.io, vkvolume_tpu_torch.io.native, "

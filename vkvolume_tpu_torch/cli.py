@@ -17,8 +17,8 @@ Usage:
     python -m vkvolume_tpu_torch.cli --synth beetle [options]
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP item):
-``--renderer marcher|sweep``, ``--scene``, ``--texture-tf``,
-``--edge-repair``, ``--sweep``, ``--test 1|2`` and ``--gradient_test``.
+``--renderer marcher``, ``--scene``, ``--edge-repair``, ``--sweep`` and
+``--gradient_test``.
 ``--debug-nans`` is accepted and does nothing: it switches on a JAX NaN
 trap that PyTorch's eager execution has no counterpart for.
 """
@@ -72,10 +72,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-ert", action="store_true",
                    help="disable early ray termination")
     p.add_argument("--test", type=int, default=0, choices=[0, 1, 2, 3],
-                   help="0=None 1=RayEntry 2=RayExit 3=NumTextureSamples "
-                        "(1 and 2 not ported)")
+                   help="0=None 1=RayEntry 2=RayExit 3=NumTextureSamples")
     p.add_argument("--texture-tf", action="store_true",
-                   help="sample the baked 256x256 TF texture (not ported)")
+                   help="sample the baked 256x256 TF texture instead of the "
+                        "closed form (the TRANSFER_FUNCTION_TEXTURE build "
+                        "variant, transfer_function.glsl:36-38)")
     p.add_argument("--edge-repair", action="store_true",
                    help="re-march resampling-suspect pixels with the "
                         "per-ray marcher (not ported)")
@@ -95,8 +96,9 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["marcher", "sweep", "pallas"],
                    help="pallas = the w-grid frame through the CUDA kernels "
                         "(brick or per-slab sweep; two-pass, single-pass "
-                        "or gather warp, as the view's plan says); marcher "
-                        "and sweep are not ported")
+                        "or gather warp, as the view's plan says; the XLA "
+                        "sweep for the views it cannot take); sweep = the "
+                        "XLA plane sweep; marcher is not ported")
     p.add_argument("--debug-nans", action="store_true",
                    help="accepted and ignored: a JAX NaN trap with no "
                         "counterpart in PyTorch's eager execution")
@@ -112,13 +114,11 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _refuse_unported(args) -> None:
     unported = [
-        (args.renderer != "pallas", f"--renderer {args.renderer}",
-         "queue A, items 10 and 13"),
+        (args.renderer == "marcher", "--renderer marcher",
+         "queue A, item 10"),
         (args.scene, "--scene", "queue A, item 16"),
-        (args.texture_tf, "--texture-tf", "queue A, item 3"),
         (args.edge_repair, "--edge-repair", "queue A, items 10 and 11"),
         (args.sweep, "--sweep", "queue A, item 12"),
-        (args.test in (1, 2), f"--test {args.test}", "queue A, item 4"),
         (args.gradient_test, "--gradient_test", "queue A, item 5"),
     ]
     for hit, flag, item in unported:
@@ -151,6 +151,7 @@ def setup_engine(args):
         clip_distance=args.clip_distance,
         early_ray_termination=not args.no_ert,
         test=Test(args.test),
+        texture_tf=args.texture_tf,
     )
     engine = Engine(render_opts, benchmark_mode=args.benchmark > 0,
                     renderer=args.renderer, device=device)

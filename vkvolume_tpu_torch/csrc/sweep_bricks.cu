@@ -46,7 +46,16 @@
 //   taps, a_tf scaled by clip((g - gmin)*ginv, 0, 1). A sample whose
 //   intensity alpha is 0 skips the gradient taps (its product is 0 either
 //   way).
-// Not ported: the texture-TF variant.
+// * TEX, the texture-TF variant (sweep_bricks.py:456-484): the TF through
+//   the baked 256x256 texture. The texture is the closed form baked at
+//   texel centres and truncated to u8, so its NEAREST lookup is computed,
+//   not gathered: each axis at its quantised texel,
+//   clamp((clamp(floor(x*256), 0, 255)*(1/255.f) - lo)*inv, 0, 1), the
+//   product, then floor(clamp(a*255, 0, 255))*(1/255.f) (the float32
+//   reciprocal, as the JAX kernel multiplies; the bake divides). Its
+//   early-outs test the quantised intensity alpha (before the gradient
+//   taps) and the truncated alpha (before compositing), the values the
+//   JAX kernel's contrib and hit read.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -59,7 +68,7 @@ struct BrickParams {
   int H, W, tile_h;        // w-grid image and tile height
   int bp_p, CV, CU, CVp, mp;   // coarse maps (mp, CVp, 128) u8
   int n_slabs, sgn, ert, count_samples;
-  int aligned, use_gradient;   // the template variant the wrapper picked
+  int aligned, use_gradient, texture_tf;   // the template variant
   float o_u, o_v, o_p, ds, imin, iinv, vaf;
   float inv_cvox_v, inv_cvox_u, drift_u, drift_v;
   float gmin, ginv;            // gradient TF (use_gradient)
@@ -228,8 +237,15 @@ __device__ __forceinline__ float bilinear(const uint8_t* __restrict__ plane0,
   return (w0 * c0 + w1 * c1) * kInv255;
 }
 
+// TEX: one axis of the baked texture's alpha at the texel NEAREST takes
+// for x (the closed form at the quantised texel).
+__device__ __forceinline__ float texel_alpha(float x, float lo, float inv) {
+  const float t = clampf(floorf(x * 256.0f), 0.0f, 255.0f);
+  return clampf((t * kInv255 - lo) * inv, 0.0f, 1.0f);
+}
+
 // One thread per pixel; the pixel's tile's brick list from the walk.
-template <bool GRAD, bool ALIGNED>
+template <bool GRAD, bool ALIGNED, bool TEX>
 __global__ void __launch_bounds__(kTileW * kRowsPerBlock)
 sweep_bricks_kernel(const float* __restrict__ wu, const float* __restrict__ wv,
                     const float* __restrict__ s_lo_g,
@@ -318,14 +334,20 @@ sweep_bricks_kernel(const float* __restrict__ wu, const float* __restrict__ wv,
         const size_t o0 = (size_t)r0 * p.Su, o1 = (size_t)r1 * p.Su;
         const float intensity = bilinear<ALIGNED>(
             vol + plane_off, plane_sz, fp, o0, o1, iu0, iu1, fu, w0, w1);
-        float a_tf = clampf((intensity - p.imin) * p.iinv, 0.0f, 1.0f);
+        float a_tf = TEX ? texel_alpha(intensity, p.imin, p.iinv)
+                         : clampf((intensity - p.imin) * p.iinv, 0.0f, 1.0f);
         if (!(a_tf > 0.0f)) continue;
         if (GRAD) {
           const float gradient = bilinear<ALIGNED>(
               grad + plane_off, plane_sz, fp, o0, o1, iu0, iu1, fu, w0, w1);
-          a_tf = a_tf * clampf((gradient - p.gmin) * p.ginv, 0.0f, 1.0f);
-          if (!(a_tf > 0.0f)) continue;
+          a_tf = a_tf * (TEX ? texel_alpha(gradient, p.gmin, p.ginv)
+                             : clampf((gradient - p.gmin) * p.ginv, 0.0f,
+                                      1.0f));
+          if (!TEX && !(a_tf > 0.0f)) continue;
         }
+        // The bake's u8 truncation (static_cast<uint8_t>).
+        if (TEX) a_tf = floorf(clampf(a_tf * 255.0f, 0.0f, 255.0f)) * kInv255;
+        if (TEX && !(a_tf > 0.0f)) continue;
         const float a_corr = clampf(
             p.vaf * (1.0f - powf(1.0f - a_tf, kap)), 0.0f, 1.0f);
         const float one_m = 1.0f - alp;
@@ -376,18 +398,24 @@ extern "C" int vkv_sweep_bricks(const void* wu, const void* wv,
   const dim3 block(kTileW, kRowsPerBlock);
   const dim3 grid(p.W / kTileW, p.H / kRowsPerBlock);
   const cudaStream_t s = (cudaStream_t)stream;
-#define VKV_LAUNCH(GRAD, ALIGNED)                                           \
-  sweep_bricks_kernel<GRAD, ALIGNED><<<grid, block, 0, s>>>(               \
+#define VKV_LAUNCH(GRAD, ALIGNED, TEX)                                      \
+  sweep_bricks_kernel<GRAD, ALIGNED, TEX><<<grid, block, 0, s>>>(          \
       (const float*)wu, (const float*)wv, (const float*)s_lo,              \
       (const float*)s_hi, (const float*)kappa, (const uint8_t*)cov,        \
       (const uint8_t*)vol, (const uint8_t*)grad, (const int*)cnt,          \
       (const int16_t*)lst, (float*)lum, (float*)alpha, (float*)firsts,     \
       (int*)nsamp, p)
+#define VKV_LAUNCH_TEX(GRAD, ALIGNED)                                       \
+  if (p.texture_tf) VKV_LAUNCH(GRAD, ALIGNED, true);                        \
+  else VKV_LAUNCH(GRAD, ALIGNED, false)
   if (p.use_gradient) {
-    if (p.aligned) VKV_LAUNCH(true, true); else VKV_LAUNCH(true, false);
+    if (p.aligned) { VKV_LAUNCH_TEX(true, true); }
+    else { VKV_LAUNCH_TEX(true, false); }
   } else {
-    if (p.aligned) VKV_LAUNCH(false, true); else VKV_LAUNCH(false, false);
+    if (p.aligned) { VKV_LAUNCH_TEX(false, true); }
+    else { VKV_LAUNCH_TEX(false, false); }
   }
+#undef VKV_LAUNCH_TEX
 #undef VKV_LAUNCH
   return (int)cudaGetLastError();
 }

@@ -1,22 +1,26 @@
 """Engine — the application orchestrator, port of
 ``vkvolume_tpu/engine/engine.py`` restricted to the main path.
 
-Owns the volumes and their acceleration maps, rebuilds the occupancy and
-distance maps on every transfer-function edit (src/volume_render.cpp:392-445)
-and renders frames through the w-grid frame (``render/sweep_frame.py``):
-the brick sweep (K1) or the per-slab sweep (K7), then the two-pass warp
-(K2), the single-pass warp (K8) or the gather warp, as the view's plan
-says. All work runs on the engine's ``device``, by default the CUDA card
-(no card: it raises); the kernels run on "cuda", their plain PyTorch
-versions on "cpu".
+Owns the volumes and their acceleration maps, rebakes the TF texture and
+rebuilds the occupancy and distance maps on every transfer-function edit
+(src/volume_render.cpp:392-445) and renders frames through the w-grid
+frame (``render/sweep_frame.py``): the brick sweep (K1) or the per-slab
+sweep (K7), then the two-pass warp (K2), the single-pass warp (K8) or the
+gather warp, as the view's plan says. The frames the w-grid frame cannot
+take go to the XLA sweep (``render/sweep.py``), as in the JAX engine:
+views with no plan (or whose narrow re-plan fails), texture-TF views whose
+plan has no brick rect or fewer slabs than voxel planes, every frame of
+``renderer="sweep"``, and the ray entry / exit ``Test`` frames. All work
+runs on the engine's ``device``, by default the CUDA card (no card: it
+raises); the kernels run on "cuda", their plain PyTorch versions on
+"cpu". A kernel that fails raises: nothing falls back on an exception.
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP item):
-the per-ray marcher and the XLA sweep (mixed-sign views, views with no
-w-grid plan, and wide-rect views whose narrow re-plan fails), the ray
-entry / exit Test diagnostics, texture TFs, depth attachments, edge
-repair, the scene pass and the accel cache. The TPU workarounds (compile
-retries and their re-plan chain, watchdog banding, prewarm, frozen plan
-tiers, A/B environment knobs) are left out by design.
+the per-ray marcher (mixed-sign views, ``renderer="marcher"``), depth
+attachments, edge repair, the scene pass and the accel cache. The TPU
+workarounds (compile retries and their re-plan chain, the XLA sweep rung
+after a failed compile, watchdog banding, prewarm, frozen plan tiers, A/B
+environment knobs) are left out by design.
 """
 
 from __future__ import annotations
@@ -33,9 +37,12 @@ from ..accel.gradient import gradient_map
 from ..accel.occupancy import (_occupancy_u8, _tf_thresholds,
                                occupied_voxel_count)
 from ..options import RenderOptions, SkippingType, Test
+from ..render import sweep as sweep_mod
 from ..render import sweep_frame
-from ..render.ray_setup import RenderOutput, make_uniforms, transpose_for_axis
-from ..tf.transfer_function import tf_params
+from ..render.frustum import rays_from_dirs
+from ..render.ray_setup import (RenderOutput, make_rays, make_uniforms,
+                                transpose_for_axis)
+from ..tf.transfer_function import bake_texture, tf_params
 from .volume import Volume, resolve_device
 
 
@@ -95,13 +102,15 @@ class Engine:
     def __init__(self, options: RenderOptions | None = None,
                  benchmark_mode: bool = False, renderer: str = "pallas",
                  device: str | torch.device = "cuda"):
-        """``renderer``: only "pallas" (the w-grid frame through the
-        kernels) is ported. ``device``: where volumes, maps and frames
-        live; "cuda" (the default) raises when there is no CUDA device."""
-        if renderer != "pallas":
+        """``renderer``: "pallas" (the w-grid frame through the kernels,
+        the XLA sweep for the frames it cannot take) or "sweep" (every
+        frame through the XLA sweep); the marcher is not ported.
+        ``device``: where volumes, maps and frames live; "cuda" (the
+        default) raises when there is no CUDA device."""
+        if renderer not in ("pallas", "sweep"):
             raise NotImplementedError(
-                f"renderer {renderer!r} (marcher / XLA sweep): ROADMAP "
-                "queue A, items 10 and 13")
+                f"renderer {renderer!r} (the per-ray marcher): ROADMAP "
+                "queue A, item 10")
         self.options = options or RenderOptions()
         self.benchmark_mode = benchmark_mode
         self.renderer = renderer
@@ -168,14 +177,18 @@ class Engine:
 
     def update_transfer_function(self, volume: Volume,
                                  timed_runs: int = 5) -> UpdateStats:
-        """TF-edit recompute path (src/volume_render.cpp:392-445): count
-        occupied voxels (benchmark mode), rebuild the occupancy map and the
-        distance maps of the active skipping type. Benchmark mode times
-        4 × ``timed_runs`` queued builds after one warm build, with one sync
-        at the end; interactive edits build once and stay queued."""
+        """TF-edit recompute path (src/volume_render.cpp:392-445): bake the
+        TF texture, count occupied voxels (benchmark mode), rebuild the
+        occupancy map and the distance maps of the active skipping type.
+        Benchmark mode times 4 × ``timed_runs`` queued builds after one
+        warm build, with one sync at the end; interactive edits build once
+        and stay queued."""
         o = volume.options
         tf = self._tf(volume)
         stats = UpdateStats()
+        volume.tf_texture = bake_texture(
+            intensity_min=o.intensity_min, intensity_max=o.intensity_max,
+            gradient_min=o.gradient_min, gradient_max=o.gradient_max)
         gradient = volume.gradient if o.use_precomputed_gradient else None
         if tf.use_gradient and gradient is None:
             raise NotImplementedError(
@@ -250,19 +263,28 @@ class Engine:
                 "ROADMAP queue A, item 10")
         return out
 
+    def _tf_texture(self, volume: Volume) -> torch.Tensor | None:
+        """The baked TF texture on the device when the texture-TF variant
+        is active (RenderOptions.texture_tf), else None (closed form)."""
+        if not self.options.texture_tf:
+            return None
+        return volume.texture_on_device()
+
+    def _full_rays(self, uniforms, height: int, width: int):
+        """The pixel rays with their entry and exit (the XLA sweep's and
+        the entry / exit frames' RaySetup)."""
+        return rays_from_dirs(
+            uniforms, make_rays(uniforms, height, width, self.device).ray_dir)
+
     def _render_sweep(self, volume: Volume, camera, width: int,
                       height: int) -> RenderOutput | None:
-        """The w-grid frame, or None when the view needs the marcher (mixed
-        principal-axis signs, no coverage)."""
-        if self.options.test not in (Test.NONE, Test.NUM_TEXTURE_SAMPLES):
+        """The w-grid frame or the XLA sweep's, or None when the view needs
+        the marcher (mixed principal-axis signs, no coverage)."""
+        if self.options.depth_attachment or self.options.edge_repair:
             raise NotImplementedError(
-                f"{self.options.test!r} frames: ROADMAP queue A, item 4")
-        if self.options.texture_tf or self.options.depth_attachment \
-                or self.options.edge_repair:
-            raise NotImplementedError(
-                "texture TF / depth attachment / edge repair: ROADMAP "
-                "queue A, items 3, 4 and 11")
-        if height % 8 or width % 128:
+                "depth attachment / edge repair: ROADMAP queue A, items 4 "
+                "and 11")
+        if self.renderer == "pallas" and (height % 8 or width % 128):
             # Render a tile-aligned padded viewport whose top-left window
             # has pixel-identical rays, then crop.
             from ..camera import pad_viewport
@@ -311,6 +333,13 @@ class Engine:
                     del cache[k]
             cache[("pose", cam_key)] = pose
         uniforms, view, plan = pose["uniforms"], pose["view"], pose["plan"]
+        if self.options.test in (Test.RAY_ENTRY, Test.RAY_EXIT):
+            # No march: the entry / exit position images come straight
+            # from the ray setup (the JAX engine's route, any view).
+            self.last_renderer = "sweep"
+            self.renderer_counts["sweep"] += 1
+            return sweep_mod.entry_exit_frame(
+                self._full_rays(uniforms, height, width), self.options.test)
         if view is None or view["mixed"]:
             return None
         p = view["p_axis"]
@@ -364,14 +393,20 @@ class Engine:
                         src = torch.minimum(src, maps[i])
                 occ_t = transpose_for_axis(src, p)
                 cache[occ_key] = occ_t
-        if occ_t is None:
-            occ_t = torch.zeros((1, 1, 1), dtype=torch.uint8,
-                                device=self.device)
-            dist_leap = False
-
-        n_slabs = int(max(2, round(
-            vol_t.shape[0] * self._slab_oversample(volume, vol_t.shape, tf))))
-        if plan is not None and plan.get("rect_w", 256) > 256 \
+        oversample = self._slab_oversample(volume, vol_t.shape, tf)
+        n_slabs = int(max(2, round(vol_t.shape[0] * oversample)))
+        if self.renderer != "pallas" or min(vol_t.shape[1:]) < 2:
+            plan = None
+        elif self.options.texture_tf and (
+                plan is None or plan.get("R_brick") is None
+                or n_slabs < vol_t.shape[0]
+                or plan["Hi"] % plan.get("tile_h", 8)):
+            # The texture-TF variant exists only in the brick sweep, which
+            # needs a brick rect, a slab per voxel plane and a grid that
+            # tiles by tile_h (the frame's test for K1); checked before the
+            # narrow re-plan below, as the JAX engine does.
+            plan = None
+        elif plan is not None and plan.get("rect_w", 256) > 256 \
                 and n_slabs < vol_t.shape[0]:
             # Wide-rect plans exist only for the brick sweep, which needs a
             # slab per voxel plane; fewer slabs (sampling_factor < 1) run
@@ -384,19 +419,26 @@ class Engine:
                 pose["plan_narrow"] = narrow if narrow is not None else False
             plan = narrow or None
         if plan is None:
-            raise NotImplementedError(
-                "view outside the w-grid plan (XLA sweep fallback): ROADMAP "
-                "queue A, item 13")
+            self.last_renderer = "sweep"
+            self.renderer_counts["sweep"] += 1
+            return sweep_mod.sweep(
+                vol_t, grad_t, occ_t, tf,
+                self._full_rays(uniforms, height, width), uniforms,
+                self._pvm(camera, volume), self._tf_texture(volume), p_axis=p,
+                early_ray_termination=self.options.early_ray_termination,
+                test=self.options.test, oversample=oversample)
+        if occ_t is None:
+            occ_t = torch.zeros((1, 1, 1), dtype=torch.uint8,
+                                device=self.device)
+            dist_leap = False
         gp = (plan["wu0"], plan["dwu"], plan.get("cu", 0.0),
               plan["wv0"], plan["dwv"], plan.get("cv", 0.0))
         # Keyed by the plan's grid: a TF or sampling edit can switch a
         # cached pose between its plan and its narrow re-plan.
         if pose.get("packed_gp") != gp:
-            pvm = (camera.proj.astype(np.float64)
-                   @ camera.view.astype(np.float64)
-                   @ volume.model_matrix).astype(np.float32)
             pose["packed"] = sweep_frame.pack_frame_scalars(
-                uniforms, pvm, list(gp), plan.get("hcoef"))
+                uniforms, self._pvm(camera, volume), list(gp),
+                plan.get("hcoef"))
             pose["packed_gp"] = gp
         packed = pose["packed"]
         out = sweep_frame._frame_body(
@@ -408,7 +450,7 @@ class Engine:
             height=height, width=width,
             warp_variant=plan.get("warp_variant", "A"),
             rect_w=plan.get("rect_w", 256), grad_t=grad_t,
-            test=self.options.test)
+            test=self.options.test, texture_tf=self.options.texture_tf)
         self.last_renderer = "pallas"
         self.renderer_counts["pallas"] += 1
         if plan.get("warp_xla"):
@@ -417,6 +459,13 @@ class Engine:
             self.renderer_counts["pallas_xla_warp"] = (
                 self.renderer_counts.get("pallas_xla_warp", 0) + 1)
         return out
+
+    @staticmethod
+    def _pvm(camera, volume: Volume) -> np.ndarray:
+        """Host proj·view·model (float64 product, float32 result)."""
+        return (camera.proj.astype(np.float64)
+                @ camera.view.astype(np.float64)
+                @ volume.model_matrix).astype(np.float32)
 
     def render_image(self, camera, width: int, height: int,
                      background=(0.0, 0.0, 0.0)) -> np.ndarray:

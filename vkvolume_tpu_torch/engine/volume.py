@@ -1,7 +1,9 @@
 """Volume state — port of ``vkvolume_tpu/engine/volume.py`` (the reference's
 ``Volume`` scene component, src/volume_component.h:31-93): the density and
 its acceleration maps are tensors on the volume's device, the transforms
-are host numpy. ``from_file`` loads a raw volume with its ``.header``
+are host numpy, and so is the baked TF texture (``tf_texture``, rebaked on
+every TF edit), whose device copy ``texture_on_device`` caches per bake.
+``from_file`` loads a raw volume with its ``.header``
 sidecar (``io/``); ``set_spin`` is the reference's spin animation.
 """
 
@@ -29,12 +31,27 @@ class Volume:
     )
     block_size: int = 4                # nominal distance-map block size
     gradient: torch.Tensor | None = None    # (D, H, W) uint8
+    tf_texture: np.ndarray | None = None    # (256, 256, 4) uint8 baked TF
     dist_maps: torch.Tensor | None = None   # (N, mz, my, mx) uint8; N=1 or 8
     header: Header | None = None
 
     @property
     def device(self) -> torch.device:
         return self.density.device
+
+    def texture_on_device(self) -> torch.Tensor:
+        """``tf_texture`` on the volume's device, copied once per bake."""
+        cached = getattr(self, "_tf_texture_dev", None)
+        if cached is None or cached[0] is not self.tf_texture:
+            if self.tf_texture is None:
+                raise ValueError("no baked TF texture (the engine bakes it "
+                                 "in update_transfer_function)")
+            cached = self._tf_texture_dev = (
+                self.tf_texture,
+                torch.as_tensor(np.ascontiguousarray(self.tf_texture,
+                                                     np.uint8),
+                                device=self.device))
+        return cached[1]
 
     @property
     def extent_xyz(self) -> tuple[int, int, int]:

@@ -2,9 +2,9 @@
 
 Every function takes host numpy arrays and Python floats (never jax
 arrays): a caller that holds JAX state converts it with ``np.asarray``
-first. Used by the tests to feed JAX-built maps, TF parameters and
-uniforms into the port, so that each stage is compared on identical
-inputs.
+first. Used by the tests to feed JAX-built maps, TF parameters, baked TF
+textures, uniforms and ray setups into the port, so that each stage is
+compared on identical inputs.
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ import torch
 from .engine.volume import Volume, from_array
 from .io.header import Header
 from .options import VolumeOptions
-from .render.ray_setup import FrameUniforms
+from .render.ray_setup import FrameUniforms, RaySetup
 from .tf.transfer_function import TFParams
 
 
@@ -59,6 +59,30 @@ def uniforms_from_numpy(fields: dict) -> FrameUniforms:
           if f.name != "front_index"}
     kw["front_index"] = np.int32(np.asarray(fields["front_index"]))
     return FrameUniforms(**kw)
+
+
+def texture_from_numpy(tex: np.ndarray,
+                       device: str | torch.device = "cpu") -> torch.Tensor:
+    """A baked (256, 256, 4) u8 TF texture as a tensor on ``device``."""
+    tex = np.asarray(tex, np.uint8)
+    if tex.shape != (256, 256, 4):
+        raise ValueError(f"TF texture of shape {tex.shape}")
+    return torch.tensor(tex, device=device)
+
+
+def rays_from_numpy(fields: dict,
+                    device: str | torch.device = "cpu") -> RaySetup:
+    """RaySetup from a dict of its fields (arrays; ``valid`` as bool, the
+    rest float32). Fields the dict lacks stay None."""
+    kw = {}
+    for f in dataclasses.fields(RaySetup):
+        if fields.get(f.name) is None:
+            continue
+        a = np.asarray(fields[f.name])
+        kw[f.name] = torch.tensor(
+            a.astype(bool) if f.name == "valid" else a.astype(np.float32),
+            device=device)
+    return RaySetup(**kw)
 
 
 def maps_from_numpy(maps_u8: np.ndarray,

@@ -38,12 +38,7 @@ def rays_from_dirs(u: FrameUniforms, dirs: torch.Tensor) -> RaySetup:
     valid = (t_entry < t_far) & (t_far > 0.0)
     entry = o + t_entry[..., None] * d
     exit_ = ray_caster_get_back(entry, d)
-    world_entry = torch.cat([entry - 0.5, torch.ones_like(entry[..., :1])],
-                            -1) @ m(u.model).T
-    clip_entry = world_entry @ (m(u.view).T @ m(u.proj).T)
     return RaySetup(
         ray_dir=d, valid=valid,
         depth_init=torch.zeros((H, W), dtype=torch.float32, device=dev),
-        entry=entry, exit=exit_,
-        ray_distance=torch.linalg.vector_norm(exit_ - entry, dim=-1),
-        entry_clip_zw=clip_entry[..., 2:4])
+        entry=entry, exit=exit_)

@@ -9,10 +9,10 @@ cap) reduce to per-pixel interval arithmetic:
 ``FrameUniforms`` stays host numpy (float32, built by ``make_uniforms``),
 so the host frame plan reads it with no device round trip. Also here: the
 principal-axis permutations of ``vkvolume_tpu/render/sweep.py`` and the
-``RenderOutput`` record of ``render/marcher_xla.py`` (the XLA sweep and the
-marcher themselves are not ported yet), and ``ray_caster_get_back``, the
-frag-exact ray exit that ``render/frustum.py:rays_from_dirs`` computes for
-the per-slab sweep. The depth-attachment ray clamp is not ported yet.
+``RenderOutput`` record of ``render/marcher_xla.py`` (the marcher itself is
+not ported yet), and ``ray_caster_get_back``, the frag-exact ray exit that
+``render/frustum.py:rays_from_dirs`` computes.
+The depth-attachment ray clamp is not ported yet (ROADMAP A.4).
 """
 
 from __future__ import annotations
@@ -115,19 +115,19 @@ def make_uniforms(
 
 @dataclasses.dataclass(frozen=True)
 class RaySetup:
-    """The JAX package's RaySetup. ``make_rays`` (the pixel rays of the
-    brick path) fills only the first three fields: PyTorch, unlike XLA,
-    would compute the others every frame for no reader. ``rays_from_dirs``
-    (the per-slab sweep's w-grid rays, which read entry and exit) fills
-    them all."""
+    """The JAX package's RaySetup, less the two fields of its depth
+    attachment (``ray_distance``, ``entry_clip_zw``; ROADMAP A.4), which no
+    port path reads. ``make_rays`` (the pixel rays of the w-grid frame)
+    fills only the first three fields: PyTorch, unlike XLA, would compute
+    the others every frame for no reader. ``rays_from_dirs`` fills them
+    all, for the per-slab sweep's w-grid rays and, on ``make_rays``'
+    directions, for the XLA sweep and the entry / exit frames."""
 
     ray_dir: torch.Tensor        # (H, W, 3) normalized, texture space
     valid: torch.Tensor          # (H, W) bool — pixel covered by the draws
     depth_init: torch.Tensor     # (H, W) initial gl_FragDepth (reverse-Z)
     entry: torch.Tensor | None = None          # (H, W, 3) texture coords
     exit: torch.Tensor | None = None           # (H, W, 3)
-    ray_distance: torch.Tensor | None = None   # (H, W)
-    entry_clip_zw: torch.Tensor | None = None  # (H, W, 2) clip z, w at entry
 
 
 def ray_caster_get_back(front: torch.Tensor,

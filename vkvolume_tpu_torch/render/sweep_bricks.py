@@ -41,7 +41,12 @@ Two variants of the kernel, as in the JAX package:
 
 Either runs with the closed-form intensity TF or the gradient-modulated
 one (``a_tf *= clip((gradient - gmin)·ginv, 0, 1)``, the gradient map
-sampled by the same taps). The texture-TF variant is not ported.
+sampled by the same taps), and either TF as the closed form or through the
+baked TF texture (``texture_tf``, the TRANSFER_FUNCTION_TEXTURE variant,
+``sweep_bricks.py:456-484`` of the JAX package): since the texture is the
+baked quantised closed form, its NEAREST lookup is the closed form at the
+quantised texel of each axis (``texel_alpha``), multiplied and truncated
+to u8/255 (``truncate_alpha``); no 2-D gather.
 """
 
 from __future__ import annotations
@@ -51,7 +56,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..tf.transfer_function import TFParams
+from ..tf.transfer_function import TFParams, texel_alpha, truncate_alpha
 from ..utils import cuda_build
 from .ray_setup import _SLICE_AXES, FrameUniforms, RenderOutput
 
@@ -62,7 +67,7 @@ _BIG = 1e30
 _INV255 = float(np.float32(1.0 / 255.0))
 _INV256 = 1.0 / 256.0
 
-LAUNCHES = {"sweep_bricks": 0, "brick_walk": 0}
+LAUNCHES = {"sweep_bricks": 0, "sweep_bricks_texture": 0, "brick_walk": 0}
 
 
 def _f32(x) -> float:
@@ -121,7 +126,8 @@ class BrickInputs:
     maps (mp, CVp, 128) u8, the transposed volume (Np, Sv, Su) u8 and, for
     a gradient TF, the gradient map transposed alike (else None), the
     occupied brick range (2,) int32 and the launch scalars (the fields of
-    ``BrickParams`` in csrc/sweep_bricks.cu)."""
+    ``BrickParams`` in csrc/sweep_bricks.cu; ``texture_tf`` selects the
+    texture-TF variant)."""
     wu: torch.Tensor
     wv: torch.Tensor
     s_lo: torch.Tensor
@@ -228,10 +234,12 @@ def brick_inputs(vol_t: torch.Tensor, occupancy_t: torch.Tensor,
                  tf: TFParams, uniforms: FrameUniforms, grid, *, p_axis: int,
                  ert: bool, count_samples: bool, n_slabs: int, sgn: int,
                  tile_h: int, dist_leap: bool,
-                 grad_t: torch.Tensor | None = None) -> BrickInputs:
+                 grad_t: torch.Tensor | None = None,
+                 texture_tf: bool = False) -> BrickInputs:
     """K1's inputs: the prologue of ``_sweep_bricks_jit`` (coarse leap map,
     tight skip map, occupied brick range, launch scalars). ``grad_t``: the
-    gradient map transposed like ``vol_t``, required by a gradient TF."""
+    gradient map transposed like ``vol_t``, required by a gradient TF;
+    ``texture_tf``: the TF through the baked texture."""
     wu, wv, s_lo, s_hi, kappa, covered = grid
     H, W = wu.shape
     Np, Sv, Su = vol_t.shape
@@ -277,7 +285,8 @@ def brick_inputs(vol_t: torch.Tensor, occupancy_t: torch.Tensor,
         CU=CU, CVp=CVp, mp=mp, n_slabs=n_slabs, sgn=1 if sgn > 0 else -1,
         ert=int(bool(ert)), count_samples=int(bool(count_samples)),
         aligned=int(n_slabs == Np), use_gradient=int(use_gradient),
-        o_u=float(o[u_ax]), o_v=float(o[v_ax]), o_p=float(o[p_axis]), ds=ds,
+        texture_tf=int(bool(texture_tf)), o_u=float(o[u_ax]),
+        o_v=float(o[v_ax]), o_p=float(o[p_axis]), ds=ds,
         imin=tf.intensity_min, iinv=tf.intensity_range_inv,
         vaf=tf.voxel_alpha_factor,
         gmin=tf.gradient_min, ginv=tf.gradient_range_inv, **cm.scalars())
@@ -486,6 +495,7 @@ class _PlainBricks(_PlainTiles):
         self.sgn = p["sgn"]
         self.aligned = bool(p["aligned"])
         self.use_gradient = bool(p["use_gradient"])
+        self.texture_tf = bool(p["texture_tf"])
         self.wu_c = self.wu_t[:, 0, :]   # the u math uses tile row 0
         self.wv_r = self.wv_t[:, :, 0]   # the v math uses tile column 0
         self.cap = n_bricks = -(-self.n_slabs // BRICK)
@@ -593,6 +603,14 @@ class _PlainBricks(_PlainTiles):
         f = torch.float32
         vol = inp.vol.reshape(-1)
         grad = inp.grad.reshape(-1) if use_gradient else None
+
+        def axis_alpha(x, lo, inv):
+            """One axis of the TF: the closed form, or (texture TF) the
+            closed form at the quantised texel."""
+            if self.texture_tf:
+                return texel_alpha(x, lo, inv)
+            return torch.clamp((x - lo) * inv, 0.0, 1.0)
+
         js = range(BRICK) if self.sgn > 0 else range(BRICK - 1, -1, -1)
         for j in js:
             k = kb * BRICK + j
@@ -640,8 +658,7 @@ class _PlainBricks(_PlainTiles):
                 c1 = v10 + (v11 - v10) * fu
                 return (w0 * c0 + w1 * c1) * _INV255
 
-            a_int = torch.clamp((bilinear(vol) - p["imin"]) * p["iinv"],
-                                0.0, 1.0)
+            a_int = axis_alpha(bilinear(vol), p["imin"], p["iinv"])
             a_tf = a_int
             if reads is not None:
                 idxs = [base + r[:, :, None] * Su + iu[:, None, :]
@@ -652,8 +669,10 @@ class _PlainBricks(_PlainTiles):
                     mark_reads(reads["grad"], grad, idxs,
                                in_rng & (a_int > 0.0), lerp)
             if use_gradient:
-                a_tf = a_tf * torch.clamp(
-                    (bilinear(grad) - p["gmin"]) * p["ginv"], 0.0, 1.0)
+                a_tf = a_tf * axis_alpha(bilinear(grad), p["gmin"],
+                                         p["ginv"])
+            if self.texture_tf:
+                a_tf = truncate_alpha(a_tf)
             a_corr = torch.clamp(
                 p["vaf"] * (1.0 - torch.pow(1.0 - a_tf, kap)), 0.0, 1.0)
             contrib = in_rng & (a_tf > 0.0)
@@ -833,7 +852,8 @@ def sweep_bricks_composite(inp: BrickInputs, walk: TileLists):
     cuda_build.check(cuda_build.load_kernels().vkv_sweep_bricks(
         *ptrs, cuda_build.BrickParams(**p), cuda_build.stream()),
         "sweep_bricks")
-    LAUNCHES["sweep_bricks"] += 1
+    LAUNCHES["sweep_bricks_texture" if p["texture_tf"]
+             else "sweep_bricks"] += 1
     return lum, alpha, firsts, nsamp
 
 
@@ -848,15 +868,17 @@ def sweep_bricks(vol_t: torch.Tensor, occupancy_t: torch.Tensor,
                  tf: TFParams, uniforms: FrameUniforms, proj_view_model,
                  grid, *, p_axis: int, ert: bool, count_samples: bool,
                  n_slabs: int, sgn: int, tile_h: int, dist_leap: bool,
-                 grad_t: torch.Tensor | None = None) -> RenderOutput:
+                 grad_t: torch.Tensor | None = None,
+                 texture_tf: bool = False) -> RenderOutput:
     """The brick sweep stage: ``grid`` = (wu, wv, s_lo, s_hi, kappa,
     covered) w-grid fields (see grid_fields); ``proj_view_model`` the host
     (4, 4) float32 matrix for the first-hit depth; ``grad_t`` the
-    transposed gradient map (gradient TFs)."""
+    transposed gradient map (gradient TFs); ``texture_tf`` the TF through
+    the baked texture."""
     inp = brick_inputs(vol_t, occupancy_t, tf, uniforms, grid, p_axis=p_axis,
                        ert=ert, count_samples=count_samples, n_slabs=n_slabs,
                        sgn=sgn, tile_h=tile_h, dist_leap=dist_leap,
-                       grad_t=grad_t)
+                       grad_t=grad_t, texture_tf=texture_tf)
     lum, alpha, firsts, nsamp = sweep_bricks_kernel(inp)
     f = torch.float32
     p = inp.params

@@ -22,7 +22,9 @@ pixels — port of ``vkvolume_tpu/render/sweep_pallas.py``.
 
 The closed-form intensity or gradient TF and the
 ``Test.NUM_TEXTURE_SAMPLES`` diagnostic (the benchmark mode's frame) run
-through every route.
+through every route; the texture TF only through the brick sweep, as in
+the JAX package (the engine sends a texture frame K1 cannot take to the
+XLA sweep, ``render/sweep.py``).
 """
 
 from __future__ import annotations
@@ -517,11 +519,13 @@ def _frame_body(vol_t: torch.Tensor, occupancy_t: torch.Tensor, tf,
                 dist_leap: bool, RECT_A, tile_h: int, R_brick, height: int,
                 width: int, warp_variant: str = "A", rect_w: int = 256,
                 grad_t: torch.Tensor | None = None,
-                test: Test = Test.NONE) -> RenderOutput:
+                test: Test = Test.NONE,
+                texture_tf: bool = False) -> RenderOutput:
     """One frame: pixel rays → w-grid fields → sweep (K1, or K7) → channel
     stack → warp (K2 twice, K8, or the gather warp) → pixel outputs.
     ``packed`` is pack_frame_scalars' array; ``grad_t`` the gradient map
-    transposed like ``vol_t`` (gradient TFs)."""
+    transposed like ``vol_t`` (gradient TFs); ``texture_tf`` the TF
+    through the baked texture (K1 only)."""
     uniforms, pvm, gp, hcoef = unpack_frame_scalars(packed)
     dev = vol_t.device
     rays = make_rays(uniforms, height, width, dev)
@@ -539,12 +543,16 @@ def _frame_body(vol_t: torch.Tensor, occupancy_t: torch.Tensor, tf,
             vol_t, occupancy_t, tf, uniforms, pvm,
             (wu_g, wv_g, s_lo, s_hi, kappa, cov), p_axis=p_axis, ert=ert,
             count_samples=num_test, n_slabs=n_slabs, sgn=sgn, tile_h=tile_h,
-            dist_leap=dist_leap, grad_t=grad_t)
+            dist_leap=dist_leap, grad_t=grad_t, texture_tf=texture_tf)
     else:
         if rect_w > 256:
             # The grid was sized for a wide brick rect; the per-slab
             # sweep's footprint limits assume 256 lanes.
             raise ValueError("a wide-rect plan needs the brick sweep")
+        if texture_tf:
+            # Only the brick sweep has the texture-TF variant; the engine
+            # sends texture frames here only when its plan takes K1.
+            raise ValueError("the texture TF needs the brick sweep")
         grid_out = sweep_slabs.sweep_slabs(
             vol_t, occupancy_t, tf,
             grid_rays(uniforms, wu_g, wv_g, p_axis, sgn_p), uniforms, pvm,

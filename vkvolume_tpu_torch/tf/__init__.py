@@ -1,3 +1,5 @@
-from .transfer_function import TFParams, get_alpha, tf_params
+from .transfer_function import (TFParams, bake_texture, get_alpha,
+                                sample_texture, tf_params)
 
-__all__ = ["TFParams", "get_alpha", "tf_params"]
+__all__ = ["TFParams", "bake_texture", "get_alpha", "sample_texture",
+           "tf_params"]

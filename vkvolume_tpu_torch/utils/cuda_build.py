@@ -59,7 +59,7 @@ class BrickParams(ctypes.Structure):
     _fields_ = [(name, ctypes.c_int) for name in (
         "Np", "Sv", "Su", "H", "W", "tile_h", "bp_p", "CV", "CU", "CVp",
         "mp", "n_slabs", "sgn", "ert", "count_samples", "aligned",
-        "use_gradient")] + [
+        "use_gradient", "texture_tf")] + [
         (name, ctypes.c_float) for name in (
             "o_u", "o_v", "o_p", "ds", "imin", "iinv", "vaf", "inv_cvox_v",
             "inv_cvox_u", "drift_u", "drift_v", "gmin", "ginv")]
