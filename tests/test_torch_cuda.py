@@ -14,6 +14,8 @@ from vkvolume_tpu_torch.accel import distance, distance_cuda
 from vkvolume_tpu_torch.bench.harness import benchmark_camera, make_engine
 from vkvolume_tpu_torch.options import Test as TTest
 from vkvolume_tpu_torch.render import sweep_bricks, sweep_frame, warp_cuda
+from torch_k8_views import (K8_CASES, PATHS, VIEWS, k8_positions, k8_view,
+                            tile_paths)
 from torch_sweep_frames import frame_parts
 
 pytestmark = pytest.mark.cuda
@@ -236,7 +238,52 @@ def test_warp_pixels_kernel(dev, C):
     gx, gy = torch.tensor(gx, device=dev), torch.tensor(gy, device=dev)
     got = warp_cuda.warp_to_pixels(chans, gx, gy)
     want = warp_cuda.warp_to_pixels_plain(chans, gx, gy)
-    assert float((got - want).abs().max()) <= 1e-6
+    assert torch.equal(got, want)
+
+
+def _hold_k8(chans, gx, gy, *, src_vec=None):
+    """One K8 launch exact to its plain version, its tile counters equal
+    to ``tile_paths``'; returns them."""
+    C, Hi, Wi = chans.shape
+    want = warp_cuda.warp_to_pixels_plain(chans, gx, gy)
+    paths = torch.zeros(4, dtype=torch.int32, device=chans.device)
+    before = warp_cuda.LAUNCHES["warp_to_pixels"]
+    got = warp_cuda.warp_to_pixels(chans, gx, gy, tile_paths=paths)
+    torch.cuda.synchronize()
+    assert warp_cuda.LAUNCHES["warp_to_pixels"] == before + 1
+    assert torch.equal(got, want), float((got - want).abs().max())
+    counts = dict(zip(PATHS, paths.tolist()))
+    assert counts == tile_paths(gx, gy, Hi, Wi, C, src_vec=src_vec)
+    return counts
+
+
+@pytest.mark.parametrize("C,Hi,Wi,H,W,kind,pos_off,src_off", K8_CASES)
+def test_warp_pixels_kernel_tiles(dev, C, Hi, Wi, H, W, kind, pos_off,
+                                  src_off):
+    """K8's paths and its tile edges, exact to the plain version: random
+    positions (every covered tile direct), patches (staged, in one pass or
+    two), empty tiles (``torch_k8_views.K8_CASES``; which path each case's
+    tiles take is held on the CPU, tests/test_torch_warp_single.py)."""
+    rng = np.random.default_rng(C * Wi + W)
+    gx, gy = k8_positions(kind, H, W, Hi, Wi, rng)
+    chans = _on_card(rng.random((C, Hi, Wi)).astype(np.float32), dev,
+                     src_off)
+    gx, gy = _on_card(gx, dev, pos_off), _on_card(gy, dev, pos_off)
+    _hold_k8(chans, gx, gy, src_vec=Wi % 4 == 0 and src_off % 16 == 0)
+
+
+@pytest.mark.parametrize("name", sorted(VIEWS))
+def test_warp_pixels_kernel_on_planned_views(dev, name):
+    """Positions of real K8 frames (the plan's grid, the homography of the
+    pose's rays), exact to the plain version: at full scale every covered
+    tile staged; the scale-0.1 frame's densest tiles direct."""
+    gx, gy, Hi, Wi, C = k8_view(name, dev)
+    rng = np.random.default_rng(7)
+    chans = torch.tensor(rng.random((C, Hi, Wi)).astype(np.float32),
+                         device=dev)
+    counts = _hold_k8(chans, gx, gy)
+    assert counts["staged"] > 0, counts
+    assert (counts["direct"] > 0) == (name == "cli_small"), counts
 
 
 # (extra CLI flags, size, azimuth): the per-slab sweep (fewer slabs than

@@ -209,23 +209,34 @@ def warp_to_pixels_plain(chans: torch.Tensor, gx: torch.Tensor,
     return torch.where((gx > -5.0)[None], v0 + (v1 - v0) * fy, 0.0)
 
 
-def warp_to_pixels(chans: torch.Tensor, gx: torch.Tensor,
-                   gy: torch.Tensor) -> torch.Tensor:
+def warp_to_pixels(chans: torch.Tensor, gx: torch.Tensor, gy: torch.Tensor,
+                   *, tile_paths: torch.Tensor | None = None) -> torch.Tensor:
     """K8: the single-pass warp of the (C, Hi, Wi) float32 grid channels to
-    the (H, W) pixels at grid positions (gx, gy); (C, H, W) float32."""
-    if gx.shape != gy.shape:
-        raise ValueError(f"gx {tuple(gx.shape)} != gy {tuple(gy.shape)}")
+    the (H, W) pixels at grid positions (gx, gy); (C, H, W) float32.
+    ``tile_paths``: None, or an int32 CUDA tensor of four counters that
+    the launch adds its tiles to: no covered pixel, staged in shared
+    memory in one pass, in two passes, a half read from global memory."""
+    if gx.shape != gy.shape or gx.ndim != 2:
+        raise ValueError(f"gx {tuple(gx.shape)}, gy {tuple(gy.shape)}: "
+                         "expected the same (H, W)")
     if chans.device.type == "cpu":
         return warp_to_pixels_plain(chans, gx, gy)
     C, Hi, Wi = chans.shape
     cuda_build.require_cuda("chans", chans, torch.float32)
     cuda_build.require_cuda("gx", gx, torch.float32)
     cuda_build.require_cuda("gy", gy, torch.float32)
+    if tile_paths is not None:
+        cuda_build.require_cuda("tile_paths", tile_paths, torch.int32, (4,))
+    if chans.numel() >= 2 ** 31:
+        raise ValueError(f"chans {tuple(chans.shape)}: at most 2**31 - 1 "
+                         "values")
     lib = cuda_build.load_kernels()
     out = torch.empty((C,) + tuple(gx.shape), dtype=torch.float32,
                       device=chans.device)
+    H, W = gx.shape
     cuda_build.check(lib.vkv_warp_pixels(
         chans.data_ptr(), gx.data_ptr(), gy.data_ptr(), out.data_ptr(), C, Hi,
-        Wi, gx.numel(), cuda_build.stream()), "warp_to_pixels")
+        Wi, H, W, None if tile_paths is None else tile_paths.data_ptr(),
+        cuda_build.stream()), "warp_to_pixels")
     LAUNCHES["warp_to_pixels"] += 1
     return out

@@ -107,8 +107,8 @@ _SIGNATURES = {
     # (wu, wv, s_lo, s_hi, kappa, cov, vol, grad, meta, cnt, lst, lum,
     #  alpha, firsts, nsamp, params, stream)
     "vkv_sweep_slabs": [_P] * 15 + [SlabParams, _P],
-    # (src, gx, gy, out, C, Hi, Wi, n_pix, stream)
-    "vkv_warp_pixels": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # (src, gx, gy, out, C, Hi, Wi, H, W, paths, stream)
+    "vkv_warp_pixels": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
 }
 
 
