@@ -76,6 +76,23 @@ full-scale synthetic stag beetle (494x832x832 u8) into bench.py's engine
          prints the fps line and ``renderer_counts``, checks that K1's
          texture variant ran on the brick poses, that the poses K7 takes
          without the texture went to the XLA sweep, and that K7 never ran;
+  8. the benchmark entry and the matrix, with the counters at 0 before
+     each run:
+     (a) ``python -m vkvolume_tpu_torch.bench`` with its defaults (bench.py's
+         frame and 5 x 20 protocol) in a subprocess whose ``jax`` and
+         ``vkvolume_tpu`` refuse to import: prints its JSON line and checks
+         its keys, that every frame went through the w-grid frame, the
+         stage split and the kernels it launched;
+     (b) ``run_config`` at the reference protocol's 1200x1200 in benchmark
+         mode (ERT off, sample counts) on the full-scale beetle, skipmodes
+         0-3 at block size 4 and skipmode 3 at 2 and 6, each cut to
+         MATRIX_REPS x MATRIX_FRAMES frames: no distance kernel in
+         skipmodes 0 and 1, the maps equal to their plain versions, the
+         frame against the plain-PyTorch frame, the CSV row printed; the
+         sweep with dist_leap off (skipmode 1) and K3 + K4 at the b=2 maps
+         held against their plain versions and timed;
+     (c) the same for present (skipmode 3) and snake-grad (skipmode 2), at
+         block size 4 and SPECIMEN_SCALE;
   7. prints the kernel table (each kernel's time, its plain version's,
      the least time the card could take for the same work, and a PyTorch
      call's where one computes the same function; a kernel's time is the
@@ -121,6 +138,14 @@ XLA_SWEEP_REPS = 3      # synced frames timed per XLA-sweep pose
 # JAX's cross-route tolerance, texture through K1 against the XLA sweep
 # (tests/test_sweep.py:328-333): share of |diff| > 0.06, mean alpha.
 CROSS_TOL, CROSS_BAD_SHARE, CROSS_ALPHA_MEAN = 0.06, 0.01, 5e-3
+# Phase 8: the reference's benchmark matrix (scripts/benchmark.py,
+# BASELINE.md) at its 1200x1200 viewport, each run cut from the
+# protocol's 5 x 20 frames to MATRIX_REPS x MATRIX_FRAMES.
+MATRIX_SIZE = 1200
+MATRIX_FRAMES, MATRIX_REPS = 5, 2
+MATRIX_RUNS = ((0, 4), (1, 4), (2, 4), (3, 4), (3, 2), (3, 6))  # beetle
+SPECIMENS = (("present", 3, 4), ("snake-grad", 2, 4))   # key, skipmode, b
+SPECIMEN_SCALE = 1.0
 
 # The least time the card could take for a kernel's work: the larger of its
 # bytes (each input read once, each output written once) over the H100's
@@ -375,10 +400,38 @@ def frame_pose(eng, cam):
     return pose, v._sweep_cache[pose["view"]["p_axis"]], occ[0]
 
 
+def aniso_rows(occ, maps, timer, phase) -> tuple:
+    """K3 + K4 on ``occ``: bit-exact to their plain versions, every one of
+    the 8 maps, and equal to the engine's ``maps``; their rows (timed)."""
+    import torch
+    from vkvolume_tpu_torch.accel import distance, distance_cuda
+
+    xy_k = distance_cuda.scan_and_relax_multi(occ)
+    xy_p = distance.scan_and_relax_multi(occ)
+    assert torch.equal(xy_k, xy_p), "K3 differs from its plain version"
+    z_k = distance_cuda.relax_z_direct_multi(xy_k)
+    z_p = distance.relax_z_direct_multi(xy_p)
+    for i in range(8):
+        assert torch.equal(z_k[i], z_p[i]), f"K4 octant map {i} differs"
+    assert torch.equal(maps, z_p), "engine maps differ"
+    # K3: two one-sided x-scans, four outputs of one y sense each; K4: 8
+    # outputs of one z sense each.
+    cells = occ.numel()
+    k3 = dict(max_abs_err=0.0,
+              ms=timer(lambda: distance_cuda.scan_and_relax_multi(occ), 20),
+              plain_ms=timer(lambda: distance.scan_and_relax_multi(occ), 2),
+              **distance_bound(1, 4, cells, 2, 1))
+    k4 = dict(max_abs_err=0.0,
+              ms=timer(lambda: distance_cuda.relax_z_direct_multi(xy_k), 20),
+              plain_ms=timer(lambda: distance.relax_z_direct_multi(xy_k), 2),
+              **distance_bound(4, 8, cells, 0, 1))
+    log(f"{phase}: K3+K4 bit-exact on 8 maps {tuple(z_k.shape)}")
+    return k3, k4
+
+
 def phase_kernels(eng, cam, timer):
     """Each kernel against its plain version at the main path's shapes."""
     import torch
-    from vkvolume_tpu_torch.accel import distance, distance_cuda
     from vkvolume_tpu_torch.accel.occupancy import (_occupancy_u8,
                                                     _tf_thresholds)
     from vkvolume_tpu_torch.bench.warp_probe import device_work
@@ -392,31 +445,7 @@ def phase_kernels(eng, cam, timer):
                              o.gradient_min, o.gradient_max))
     occ = _occupancy_u8(v.density, None, v.map_shape_zyx, ti, tg)
 
-    # K3 + K4: bit-exact, every one of the 8 maps (and the engine's maps).
-    xy_k = distance_cuda.scan_and_relax_multi(occ)
-    xy_p = distance.scan_and_relax_multi(occ)
-    assert torch.equal(xy_k, xy_p), "K3 differs from its plain version"
-    z_k = distance_cuda.relax_z_direct_multi(xy_k)
-    z_p = distance.relax_z_direct_multi(xy_p)
-    for i in range(8):
-        assert torch.equal(z_k[i], z_p[i]), f"K4 octant map {i} differs"
-    assert torch.equal(v.dist_maps, z_p), "engine maps differ"
-    # K3: two one-sided x-scans, four outputs of one y sense each; K4: 8
-    # outputs of one z sense each.
-    cells = occ.numel()
-    rows["K3"] = dict(max_abs_err=0.0,
-                      ms=timer(lambda: distance_cuda.scan_and_relax_multi(occ),
-                               20),
-                      plain_ms=timer(lambda: distance.scan_and_relax_multi(occ),
-                                     2),
-                      **distance_bound(1, 4, cells, 2, 1))
-    rows["K4"] = dict(max_abs_err=0.0,
-                      ms=timer(lambda: distance_cuda.relax_z_direct_multi(xy_k),
-                               20),
-                      plain_ms=timer(lambda: distance.relax_z_direct_multi(xy_k),
-                                     2),
-                      **distance_bound(4, 8, cells, 0, 1))
-    log(f"phase 2: K3+K4 bit-exact on 8 maps {tuple(z_k.shape)}")
+    rows["K3"], rows["K4"] = aniso_rows(occ, v.dist_maps, timer, "phase 2")
 
     # K1 on the frame's own grid fields and maps.
     pose, vol_t, occ_t = frame_pose(eng, cam)
@@ -1295,6 +1324,185 @@ def phase_texture(timer, out_dir):
     return rows, launches, orbit_launches, tex_ms, sweep_ms
 
 
+def phase_entry() -> dict:
+    """(a) ``python -m vkvolume_tpu_torch.bench`` with its defaults, in a
+    process whose ``jax`` and ``vkvolume_tpu`` refuse to import: its one
+    JSON line, with bench.py's keys, every frame through the w-grid
+    frame and the stage split filled."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as run_dir:
+        for name in ("jax", "vkvolume_tpu"):
+            os.makedirs(os.path.join(run_dir, name))
+            with open(os.path.join(run_dir, name, "__init__.py"), "w") as fh:
+                fh.write(f"raise ImportError('{name} imported')\n")
+        # The synthetic volume's cache (datasets.synthesize: .cache/).
+        os.makedirs(os.path.join(repo, ".cache"), exist_ok=True)
+        os.symlink(os.path.join(repo, ".cache"),
+                   os.path.join(run_dir, ".cache"))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "vkvolume_tpu_torch.bench"],
+            cwd=run_dir, env=dict(os.environ, PYTHONPATH=repo),
+            capture_output=True, text=True)
+    if proc.returncode:
+        log(proc.stderr[-4000:])
+        raise AssertionError(f"the bench entry exited {proc.returncode}")
+    lines = proc.stdout.strip().splitlines()
+    assert len(lines) == 1, lines
+    log(f"phase 8a: python -m vkvolume_tpu_torch.bench in "
+        f"{time.perf_counter() - t0:.1f} s:")
+    log(lines[0])
+    r = json.loads(lines[0])
+    keys = {"metric", "value", "unit", "vs_baseline", "fps", "map_update_ms",
+            "occupancy_pct", "frames", "scale", "wall_s", "rep_ms",
+            "rep_spread", "renderer_used", "renderer_counts", "protocol",
+            "stages", "device", "power_limit"}
+    assert keys <= set(r), keys - set(r)
+    assert "frame_ms_stretch_equiv" not in r
+    assert {k for k, n in r["renderer_counts"].items() if n} == {"pallas"}, \
+        r["renderer_counts"]
+    assert set(r["stages"]) == {"plan_ms", "sweep_ms", "warp_ms"}
+    assert all(r["stages"][k] > 0 for k in r["stages"])
+    assert r["protocol"] == "5x20" and r["scale"] == 1.0
+    for k in ("sweep_bricks", "brick_walk", "resample_rows",
+              "scan_and_relax_multi", "relax_z_direct_multi"):
+        assert r["launches"][k] > 0, f"the entry never launched {k}"
+    return r
+
+
+def plain_maps(eng):
+    """(occupancy map, skip maps) of the engine's volume from the plain
+    versions: the occupancy map, then the distance transforms of the
+    engine's skipping type, as the engine builds them."""
+    from vkvolume_tpu_torch.accel import distance
+    from vkvolume_tpu_torch.accel.occupancy import (_occupancy_u8,
+                                                    _tf_thresholds)
+    from vkvolume_tpu_torch.options import SkippingType
+
+    v = eng.volumes[0]
+    o = v.options
+    ti, tg = _tf_thresholds((o.intensity_min, o.intensity_max,
+                             o.gradient_min, o.gradient_max))
+    occ = _occupancy_u8(v.density,
+                        v.gradient if eng._tf(v).use_gradient else None,
+                        v.map_shape_zyx, ti, tg)
+    skipping_type = eng.options.skipping_type
+    if skipping_type == SkippingType.ANISOTROPIC_DISTANCE:
+        return occ, distance.anisotropic_distance(occ)
+    if skipping_type == SkippingType.DISTANCE:
+        return occ, distance.isotropic_distance(occ)[None]
+    return occ, occ[None]
+
+
+def matrix_run(key, skipmode, blocksize, volume, phase):
+    """One ``run_config`` of the matrix at MATRIX_SIZE² in benchmark mode,
+    launch counters at 0 before it: the distance kernels its skipmode
+    runs (none in 0 and 1), a sweep, the maps equal to their plain
+    versions, the frame against the plain-PyTorch frame. Returns (result,
+    launches, engine)."""
+    import torch
+    from vkvolume_tpu_torch.bench.harness import benchmark_camera, run_config
+    from vkvolume_tpu_torch.options import SkippingType
+
+    t0 = time.perf_counter()
+    reset_launches()
+    r = run_config(key, skipmode, blocksize, width=MATRIX_SIZE,
+                   height=MATRIX_SIZE, frames=MATRIX_FRAMES, reps=MATRIX_REPS,
+                   volume_u8=volume, keep_engine=True, device="cuda")
+    torch.cuda.synchronize()
+    launches = read_launches()
+    eng = r.engine
+    log(f"{phase}: {key} skipmode {skipmode} b={blocksize} "
+        f"{MATRIX_SIZE}x{MATRIX_SIZE} ({MATRIX_REPS}x{MATRIX_FRAMES} frames, "
+        f"cut from 5x20): row {r.row()} frame_ms {r.frame_ms:.4f} rep_ms "
+        f"{[round(x, 4) for x in r.rep_ms]} host "
+        f"{[round(x, 4) for x in r.rep_host_ms]} renderer_counts "
+        f"{r.renderer_counts}")
+    log(f"{phase}: launches {launches}")
+    distance_kernels = ("K3", "K4", "K4 two-sided", "K5", "K6")
+    st = SkippingType(skipmode)
+    if st in (SkippingType.NONE, SkippingType.BLOCK):
+        assert not any(launches[k] for k in distance_kernels), \
+            f"{phase}: skipmode {skipmode} ran a distance kernel"
+    elif st == SkippingType.DISTANCE:
+        assert launches["K5"] > 0 and launches["K4 two-sided"] > 0
+    else:
+        assert launches["K3"] > 0 and launches["K4"] > 0
+    assert launches["K1"] + launches["K7"] > 0, f"{phase}: no sweep ran"
+    assert launches["K2"] + launches["K8"] > 0 or \
+        r.renderer_counts.get("pallas_xla_warp")
+    assert r.renderer_used == "pallas" and r.renderer_counts["sweep"] == 0
+    v = eng.volumes[0]
+    assert torch.equal(v.dist_maps, plain_maps(eng)[1]), \
+        f"{phase}: maps differ from their plain versions"
+    cam = benchmark_camera(1.0)
+    color = eng.render(cam, MATRIX_SIZE, MATRIX_SIZE).color
+    assert tuple(color.shape) == (MATRIX_SIZE, MATRIX_SIZE, 4)
+    assert bool(torch.isfinite(color).all())
+    covered = float((color[..., 3] > 0).float().mean())
+    assert covered >= MIN_COVERED, f"{phase}: frame nearly empty ({covered})"
+    check_against_plain_frame(eng, cam, color, MATRIX_SIZE, MATRIX_SIZE,
+                              f"{phase} {key} skipmode {skipmode} "
+                              f"b={blocksize}")
+    log(f"{phase}: maps {tuple(v.dist_maps.shape)} equal to the plain maps; "
+        f"covered share {covered:.4f}; {time.perf_counter() - t0:.1f} s")
+    r.engine = None
+    return r, launches, eng
+
+
+def phase_matrix(timer):
+    """(a) the benchmark entry, (b) the reference's matrix at 1200x1200 on
+    the beetle (skipmodes 0-3 at b=4, skipmode 3 at b=2 and 6), (c) the
+    present and snake-grad specimens."""
+    import torch
+    from vkvolume_tpu_torch.bench.datasets import DATASETS, synthesize
+    from vkvolume_tpu_torch.bench.harness import benchmark_camera, capture
+    from vkvolume_tpu_torch.render import sweep_bricks, sweep_slabs
+
+    entry = phase_entry()
+    rows, launches, results = {}, {}, []
+    beetle = synthesize(DATASETS["beetle"])
+    for skipmode, b in MATRIX_RUNS:
+        r, n, eng = matrix_run("beetle", skipmode, b, beetle, "phase 8b")
+        results.append(r)
+        if (skipmode, b) == (1, 4):
+            # K1 or K7 with dist_leap off, on the inputs the frame hands it.
+            got, inp = capture(eng, benchmark_camera(1.0), MATRIX_SIZE,
+                               MATRIX_SIZE)
+            err, n_k, reads, stats = hold_sweep(
+                inp, f"phase 8b: {got} (skipmode 1, no leap)")
+            kernel, plain = ((sweep_bricks.sweep_bricks_kernel,
+                              sweep_bricks.sweep_bricks_reference)
+                             if got == "K1" else
+                             (sweep_slabs.sweep_slabs_kernel,
+                              sweep_slabs.sweep_slabs_plain))
+            rows[f"{got} no leap"] = dict(
+                max_abs_err=err, ms=timer(lambda: kernel(inp), 10),
+                plain_ms=timer(lambda: plain(inp), 1, warm=0),
+                **sweep_bound(inp, n_k, reads, stats))
+            launches[f"{got} no leap"] = n[got]
+            del inp
+        if (skipmode, b) == (3, 2):
+            occ = plain_maps(eng)[0]
+            rows["K3 b=2"], rows["K4 b=2"] = aniso_rows(
+                occ, eng.volumes[0].dist_maps, timer, "phase 8b (b=2)")
+            launches["K3 b=2"], launches["K4 b=2"] = n["K3"], n["K4"]
+            del occ
+        del eng, r
+        torch.cuda.empty_cache()
+    del beetle
+    for key, skipmode, b in SPECIMENS:
+        t0 = time.perf_counter()
+        vol = synthesize(DATASETS[key], scale=SPECIMEN_SCALE)
+        log(f"phase 8c: {key} {vol.shape} at scale {SPECIMEN_SCALE} "
+            f"synthesised or loaded in {time.perf_counter() - t0:.1f} s")
+        r, _, eng = matrix_run(key, skipmode, b, vol, "phase 8c")
+        results.append(r)
+        del eng, r, vol
+        torch.cuda.empty_cache()
+    return entry, rows, launches, results
+
+
 def main() -> int:
     import torch
 
@@ -1333,7 +1541,12 @@ def main() -> int:
         torch.cuda.empty_cache()
         tex_rows, tex_launches, tex_orbit_launches, tex_ms, sweep_ms = \
             phase_texture(gpu_timer, out_dir)
-    for more in (cli_rows, accel_rows, orbit_rows, tex_rows):
+    torch.cuda.empty_cache()
+    t8 = time.perf_counter()
+    entry, matrix_rows, matrix_launches, matrix_results = phase_matrix(
+        gpu_timer)
+    log(f"phase 8: {time.perf_counter() - t8:.1f} s")
+    for more in (cli_rows, accel_rows, orbit_rows, tex_rows, matrix_rows):
         rows.update(more)
     assert "jax" not in sys.modules
 
@@ -1399,6 +1612,25 @@ def main() -> int:
                      "vkvolume_tpu_torch/csrc/warp_pixels.cu",
                      "vkvolume_tpu/render/warp_pallas.py:26"),
     }
+    for k in matrix_rows:
+        if k.endswith("no leap"):
+            brick = k.startswith("K1")
+            where[k] = (
+                f"{'sweep_bricks' if brick else 'sweep_slabs'} (dist_leap "
+                f"off: skipmode 1, beetle b=4, {MATRIX_SIZE}x{MATRIX_SIZE} "
+                f"benchmark mode)", matrix_launches[k],
+                "vkvolume_tpu_torch/csrc/"
+                + ("sweep_bricks.cu" if brick else "sweep_slabs.cu"),
+                "vkvolume_tpu/render/"
+                + ("sweep_bricks.py:56" if brick else "sweep_pallas.py:58"))
+    where["K3 b=2"] = ("scan_and_relax_multi (beetle b=2 map; matrix)",
+                       matrix_launches["K3 b=2"],
+                       "vkvolume_tpu_torch/csrc/distance.cu",
+                       "vkvolume_tpu/accel/distance_pallas.py:146")
+    where["K4 b=2"] = ("relax_z_direct_multi (beetle b=2 maps; matrix)",
+                       matrix_launches["K4 b=2"],
+                       "vkvolume_tpu_torch/csrc/distance.cu",
+                       "vkvolume_tpu/accel/distance_pallas.py:162")
     kernels = []
     for k, (name, n, source, replaces) in where.items():
         r = rows[k]
@@ -1427,6 +1659,14 @@ def main() -> int:
         f"{sweep_ms['cli']:.4f}, side view {sweep_ms['side']:.4f} "
         f"({XLA_SWEEP_REPS} synced reps each)")
     log(f"texture orbit launches {tex_orbit_launches}")
+    log(f"bench entry: value {entry['value']:.4f} ms/frame, vs_baseline "
+        f"{entry['vs_baseline']:.4f}, stages {entry['stages']} "
+        f"({entry['metric']})")
+    for r in matrix_results:
+        log(f"matrix {r.image} skipmode {r.skipmode} b={r.blocksize}: "
+            f"{r.framerate:.2f} fps ({r.frame_ms:.4f} ms), update "
+            f"{r.update:.4f} ms, occupancy {r.occupancy:.4f} % "
+            f"({MATRIX_SIZE}x{MATRIX_SIZE}, {MATRIX_REPS}x{MATRIX_FRAMES})")
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

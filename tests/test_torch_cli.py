@@ -102,12 +102,51 @@ def test_png_is_the_composited_frame(frames):
 
 @pytest.mark.parametrize("flags,item", [
     (["--renderer", "marcher"], "item 10"), (["--scene"], "item 16"),
-    (["--edge-repair"], "items 10 and 11"), (["--sweep"], "item 12"),
-    (["--gradient_test"], "item 5")])
+    (["--edge-repair"], "items 10 and 11"), (["--gradient_test"], "item 5")])
 def test_unported_flags_raise(flags, item):
     args = tcli.build_parser().parse_args(["--device", "cpu"] + flags)
     with pytest.raises(NotImplementedError, match=f"ROADMAP queue A, {item}"):
         tcli.setup_engine(args)
+
+
+# One row per skipmode is left to run; the rest of the matrix is already in
+# the CSVs, as after an interrupted sweep.
+TO_RUN = {0: ("present", 2), 1: ("beetle-grad", 3), 2: ("snake", 5),
+          3: ("beetle", 6)}
+
+
+def test_sweep_flag_writes_the_four_csvs(tmp_path, monkeypatch):
+    """``--sweep --device cpu`` writes the reference matrix's four CSVs in
+    the JAX package's schema: 6 dataset/TF configurations x block sizes 2-6
+    (skipmode 0 at block size 2 only), resuming from the rows already
+    written."""
+    from vkvolume_tpu.bench.harness import CSV_COLUMNS
+    from vkvolume_tpu_torch.bench.datasets import DATASETS
+
+    monkeypatch.chdir(tmp_path)
+    for sm, todo in TO_RUN.items():
+        with open(f"benchmark_results_{sm}.csv", "w") as fh:
+            fh.write(",".join(CSV_COLUMNS) + "\n")
+            for key, ds in DATASETS.items():
+                for b in ((2,) if sm == 0 else (2, 3, 4, 5, 6)):
+                    if (key, b) != todo:
+                        fh.write(f"{key.split('-')[0]},{sm},{b},1.0,-1.0,0.0,"
+                                 f"{ds.imin},{ds.imax},{ds.gmin},{ds.gmax}\n")
+    assert tcli.main(["--sweep", "--device", "cpu", "--synth-scale", "0.05",
+                      "--width", "128", "--height", "128", "--frames",
+                      "1"]) == 0
+    for sm, (key, b) in TO_RUN.items():
+        with open(f"benchmark_results_{sm}.csv") as fh:
+            rows = [line.rstrip("\n").split(",") for line in fh]
+        assert rows[0] == CSV_COLUMNS
+        assert len(rows) == 1 + (6 if sm == 0 else 30)
+        new = rows[-1]
+        ds = DATASETS[key]
+        assert new[:3] == [key.split("-")[0], str(sm), str(b)]
+        assert new[6:] == [str(ds.imin), str(ds.imax), str(ds.gmin),
+                           str(ds.gmax)]
+        assert float(new[3]) > 0 and float(new[4]) > 0
+        assert all(r[4] == "-1.0" for r in rows[1:-1])
 
 
 @pytest.mark.parametrize("flags", [

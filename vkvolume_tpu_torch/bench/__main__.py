@@ -1,0 +1,138 @@
+"""Headline benchmark of the port: ms/frame at 1920×1080, the beetle-class
+volume, anisotropic-distance ESS (bench.py's frame and protocol).
+
+    python -m vkvolume_tpu_torch.bench [--device cuda|cpu]
+
+Prints ONE JSON line with bench.py's keys:
+
+    {"metric": ..., "value": N, "unit": "ms/frame", "vs_baseline": N, ...}
+
+The frame: the synthetic stag beetle at full scale, skipmode 3, block size
+4, renderer "pallas", ``Test.NONE``, ERT on, the aspect-preserving fit.
+The protocol: one warm frame, then ``BENCH_REPS`` repetitions of
+``BENCH_FRAMES`` queued frames, each ended by one synchronise; ``value``
+is the median repetition on the card's clock (CUDA events), ``rep_ms``
+the repetitions, ``rep_host_ms`` the same repetitions on the host clock.
+``stages`` is ``stage_breakdown``'s plan / sweep / warp split of the same
+pose, and ``launches`` counts each kernel wrapper's launches over the
+warm frame and the timed repetitions.
+
+``vs_baseline``: the reference's mode-matched stag-beetle fps at 1200×1200
+(``BASELINE.md``, scripts/benchmark_results_{0..3}.csv:14; VkVolume on its
+own, unrecorded GPU), pixel-scaled to this frame size, as a frame time,
+over this frame's median (> 1 = faster than the reference).
+
+Environment overrides: BENCH_FRAMES (20), BENCH_REPS (5), BENCH_SCALE
+(1.0, the volume's scale), BENCH_WIDTH (1920), BENCH_HEIGHT (1080),
+BENCH_DATASET (beetle), BENCH_SKIPMODE (3), BENCH_RENDERER (pallas),
+BENCH_BREAKDOWN (1; 0 leaves ``stages`` out).
+
+``--device cuda`` (the default) needs a CUDA device and raises without
+one; ``--device cpu`` runs the kernels' plain PyTorch versions and reports
+host-clock times under ``value`` (for the tests; no card metric).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+# The reference's stag-beetle TF-a fps at 1200×1200 by skipmode
+# (scripts/benchmark_results_{0..3}.csv:14, BASELINE.md).
+REFERENCE_FPS_1200 = {0: 75.3, 1: 340.3, 2: 623.8, 3: 672.3}
+
+
+def kernel_launches() -> dict:
+    """Each kernel wrapper's launch count so far."""
+    from ..accel import distance_cuda
+    from ..render import sweep_bricks, sweep_slabs, warp_cuda
+
+    return {k: n for t in (distance_cuda.LAUNCHES, sweep_bricks.LAUNCHES,
+                           sweep_slabs.LAUNCHES, warp_cuda.LAUNCHES)
+            for k, n in t.items()}
+
+
+def card(device) -> tuple:
+    """(name, power limit) of the card ``device`` names, as ``nvidia-smi``
+    gives them; ("cpu", None) on the CPU."""
+    import torch
+
+    if device.type != "cuda":
+        return "cpu", None
+    index = device.index if device.index is not None else 0
+    out = subprocess.run(
+        ["nvidia-smi", "-i", str(index), "--query-gpu=power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    return torch.cuda.get_device_name(index), out
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(prog="python -m vkvolume_tpu_torch.bench",
+                                description=__doc__.split("\n\n")[0])
+    p.add_argument("--device", default="cuda",
+                   help="cuda (the kernels; the default) or cpu (their "
+                        "plain versions, host-clock times)")
+    args = p.parse_args(argv)
+
+    env = os.environ
+    frames = int(env.get("BENCH_FRAMES", "20"))
+    reps = int(env.get("BENCH_REPS", "5"))
+    scale = float(env.get("BENCH_SCALE", "1.0"))
+    width = int(env.get("BENCH_WIDTH", "1920"))
+    height = int(env.get("BENCH_HEIGHT", "1080"))
+    dataset = env.get("BENCH_DATASET", "beetle")
+    skipmode = int(env.get("BENCH_SKIPMODE", "3"))
+    renderer = env.get("BENCH_RENDERER", "pallas")
+    breakdown = env.get("BENCH_BREAKDOWN", "1") != "0"
+
+    from ..engine.volume import resolve_device
+    from ..options import Test
+    from .harness import benchmark_camera, run_config, stage_breakdown
+
+    t_start = time.time()
+    device = resolve_device(args.device)
+    r = run_config(dataset, skipmode, 4, width=width, height=height,
+                   frames=frames, reps=reps, scale=scale, test=Test.NONE,
+                   ert=True, renderer=renderer, keep_engine=True,
+                   device=device)
+    launches = kernel_launches()
+    stages = (stage_breakdown(r.engine, benchmark_camera(width / height),
+                              width, height) if breakdown else None)
+    name, power_limit = card(device)
+    fit = "aspect"
+    ref_fps = REFERENCE_FPS_1200[skipmode] / ((width * height) / 1200.0 ** 2)
+    print(json.dumps({
+        "metric": (f"ms/frame {width}x{height} {dataset} skipmode={skipmode}"
+                   f" renderer={renderer} fit={fit} (synthetic, "
+                   f"occupancy+structure-matched)"),
+        "value": r.frame_ms,
+        "unit": "ms/frame",
+        "vs_baseline": (1000.0 / ref_fps) / r.frame_ms,
+        "fit": fit,
+        "fps": r.framerate,
+        "map_update_ms": r.update,
+        "occupancy_pct": r.occupancy,
+        "frames": frames,
+        "scale": scale,
+        "wall_s": time.time() - t_start,
+        "rep_ms": list(r.rep_ms),
+        "rep_host_ms": list(r.rep_host_ms),
+        "rep_spread": (max(r.rep_ms) - min(r.rep_ms)) / r.frame_ms,
+        "renderer_used": r.renderer_used,
+        "renderer_counts": r.renderer_counts,
+        "protocol": f"{reps}x{frames}",
+        "stages": stages,
+        "launches": launches,
+        "device": name,
+        "power_limit": power_limit,
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -16,8 +16,14 @@ Usage:
     python -m vkvolume_tpu_torch.cli [options] [<dataset>]
     python -m vkvolume_tpu_torch.cli --synth beetle [options]
 
+``--sweep`` runs the reference's benchmark matrix (``bench.harness.
+run_sweep``: six dataset/TF configurations, skipmodes 0-3, block sizes
+2-6, ``--frames`` frames at ``--width`` x ``--height``, synthetic volumes
+at ``--synth-scale``) on ``--device`` and writes
+``benchmark_results_<skipmode>.csv`` in the working directory.
+
 Not ported yet (each raises NotImplementedError naming its ROADMAP item):
-``--renderer marcher``, ``--scene``, ``--edge-repair``, ``--sweep`` and
+``--renderer marcher``, ``--scene``, ``--edge-repair`` and
 ``--gradient_test``.
 ``--debug-nans`` is accepted and does nothing: it switches on a JAX NaN
 trap that PyTorch's eager execution has no counterpart for.
@@ -103,7 +109,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="accepted and ignored: a JAX NaN trap with no "
                         "counterpart in PyTorch's eager execution")
     p.add_argument("--sweep", action="store_true",
-                   help="run the full benchmark sweep (not ported)")
+                   help="run the full benchmark sweep")
     p.add_argument("--frames", type=int, default=20,
                    help="timed frames per sweep config")
     p.add_argument("--device", default="cuda",
@@ -118,7 +124,6 @@ def _refuse_unported(args) -> None:
          "queue A, item 10"),
         (args.scene, "--scene", "queue A, item 16"),
         (args.edge_repair, "--edge-repair", "queue A, items 10 and 11"),
-        (args.sweep, "--sweep", "queue A, item 12"),
         (args.gradient_test, "--gradient_test", "queue A, item 5"),
     ]
     for hit, flag, item in unported:
@@ -247,6 +252,13 @@ def run(argv=None):
 
 
 def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    if args.sweep:
+        from .bench.harness import run_sweep
+
+        run_sweep(width=args.width, height=args.height, frames=args.frames,
+                  scale=args.synth_scale, device=args.device)
+        return 0
     run(argv)
     return 0
 

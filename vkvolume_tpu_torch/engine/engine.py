@@ -40,8 +40,8 @@ from ..options import RenderOptions, SkippingType, Test
 from ..render import sweep as sweep_mod
 from ..render import sweep_frame
 from ..render.frustum import rays_from_dirs
-from ..render.ray_setup import (RenderOutput, make_rays, make_uniforms,
-                                transpose_for_axis)
+from ..render.ray_setup import (RenderOutput, axis_shape, make_rays,
+                                make_uniforms, transpose_for_axis)
 from ..tf.transfer_function import bake_texture, tf_params
 from .volume import Volume, resolve_device
 
@@ -318,13 +318,8 @@ class Engine:
                 camera, volume.node_transform, volume.image_transform,
                 self.options.clip_distance,
                 np.asarray(volume.effective_block_size_xyz, np.float32))
-
-            def shape_for(q):
-                return {2: dsh, 1: (dsh[1], dsh[0], dsh[2]),
-                        0: (dsh[2], dsh[0], dsh[1])}[q]
-
-            view, plan = sweep_frame.select_view_plan(uniforms, height, width,
-                                                      shape_for)
+            view, plan = sweep_frame.select_view_plan(
+                uniforms, height, width, lambda q: axis_shape(dsh, q))
             pose = dict(uniforms=uniforms, view=view, plan=plan)
             keys = [k for k in cache if isinstance(k, tuple)
                     and k[0] == "pose"]

@@ -39,6 +39,12 @@ def transpose_for_axis(volume_zyx: torch.Tensor, p: int) -> torch.Tensor:
     return volume_zyx.permute(2, 0, 1).contiguous()
 
 
+def axis_shape(shape_zyx, p: int) -> tuple:
+    """The shape ``transpose_for_axis`` gives a (D, H, W) volume."""
+    d, h, w = shape_zyx
+    return {2: (d, h, w), 1: (h, d, w), 0: (w, d, h)}[p]
+
+
 @dataclasses.dataclass(frozen=True)
 class RenderOutput:
     color: torch.Tensor          # (H, W, 4) premultiplied rgba, float32

@@ -56,6 +56,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..options import Test
 from ..tf.transfer_function import TFParams, texel_alpha, truncate_alpha
 from ..utils import cuda_build
 from .ray_setup import _SLICE_AXES, FrameUniforms, RenderOutput
@@ -140,6 +141,14 @@ class BrickInputs:
     grad: torch.Tensor | None
     kb_occ: torch.Tensor
     params: dict
+
+
+def n_steps_max(dim_max: int, sampling_factor: float) -> float:
+    """The reference's per-ray step budget floor(ceil(dim_max·√3)·sf), in
+    float32, the sample-count colour's denominator."""
+    f32 = np.float32
+    return float(np.floor(np.ceil(f32(dim_max) * np.sqrt(f32(3.0)))
+                          * f32(sampling_factor)))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -869,12 +878,15 @@ def sweep_bricks(vol_t: torch.Tensor, occupancy_t: torch.Tensor,
                  grid, *, p_axis: int, ert: bool, count_samples: bool,
                  n_slabs: int, sgn: int, tile_h: int, dist_leap: bool,
                  grad_t: torch.Tensor | None = None,
-                 texture_tf: bool = False) -> RenderOutput:
+                 texture_tf: bool = False,
+                 test: Test = Test.NONE) -> RenderOutput:
     """The brick sweep stage: ``grid`` = (wu, wv, s_lo, s_hi, kappa,
     covered) w-grid fields (see grid_fields); ``proj_view_model`` the host
     (4, 4) float32 matrix for the first-hit depth; ``grad_t`` the
     transposed gradient map (gradient TFs); ``texture_tf`` the TF through
-    the baked texture."""
+    the baked texture. Under ``Test.NUM_TEXTURE_SAMPLES`` the colour is
+    the sample count over the step budget, opaque where covered, as in
+    the JAX brick sweep (and the per-slab sweep)."""
     inp = brick_inputs(vol_t, occupancy_t, tf, uniforms, grid, p_axis=p_axis,
                        ert=ert, count_samples=count_samples, n_slabs=n_slabs,
                        sgn=sgn, tile_h=tile_h, dist_leap=dist_leap,
@@ -900,6 +912,10 @@ def sweep_bricks(vol_t: torch.Tensor, occupancy_t: torch.Tensor,
     w = pen_clip[..., 3]
     pen_depth = pen_clip[..., 2] / torch.where(w == 0, 1.0, w)
     depth = torch.where(hit, pen_depth, 0.0)
+    if test == Test.NUM_TEXTURE_SAMPLES:
+        val = nsamp.to(f) / n_steps_max(max(vol_t.shape), tf.sampling_factor)
+        color = torch.stack([val, val, val, torch.ones_like(val)], -1)
+        color = torch.where(inp.cov[..., None], color, 0.0)
     zi = torch.zeros((H, W), dtype=torch.int32, device=pen.device)
     return RenderOutput(color=color, depth=depth, num_volume_samples=nsamp,
                         num_distance_samples=zi, num_empty_samples=zi,

@@ -520,12 +520,15 @@ def _frame_body(vol_t: torch.Tensor, occupancy_t: torch.Tensor, tf,
                 width: int, warp_variant: str = "A", rect_w: int = 256,
                 grad_t: torch.Tensor | None = None,
                 test: Test = Test.NONE,
-                texture_tf: bool = False) -> RenderOutput:
+                texture_tf: bool = False, return_chans: bool = False):
     """One frame: pixel rays → w-grid fields → sweep (K1, or K7) → channel
     stack → warp (K2 twice, K8, or the gather warp) → pixel outputs.
     ``packed`` is pack_frame_scalars' array; ``grad_t`` the gradient map
     transposed like ``vol_t`` (gradient TFs); ``texture_tf`` the TF
-    through the baked texture (K1 only)."""
+    through the baked texture (K1 only). ``return_chans``: stop before the
+    pixel stage and return its inputs (channel stack, pixel rays, sweep
+    iterations), as the JAX frame's ``return_chans`` does for
+    ``stage_breakdown``."""
     uniforms, pvm, gp, hcoef = unpack_frame_scalars(packed)
     dev = vol_t.device
     rays = make_rays(uniforms, height, width, dev)
@@ -543,7 +546,8 @@ def _frame_body(vol_t: torch.Tensor, occupancy_t: torch.Tensor, tf,
             vol_t, occupancy_t, tf, uniforms, pvm,
             (wu_g, wv_g, s_lo, s_hi, kappa, cov), p_axis=p_axis, ert=ert,
             count_samples=num_test, n_slabs=n_slabs, sgn=sgn, tile_h=tile_h,
-            dist_leap=dist_leap, grad_t=grad_t, texture_tf=texture_tf)
+            dist_leap=dist_leap, grad_t=grad_t, texture_tf=texture_tf,
+            test=test)
     else:
         if rect_w > 256:
             # The grid was sized for a wide brick rect; the per-slab
@@ -562,6 +566,8 @@ def _frame_body(vol_t: torch.Tensor, occupancy_t: torch.Tensor, tf,
     chans = [grid_out.color[..., 0], grid_out.color[..., 3], grid_out.depth]
     if num_test:
         chans.append(grid_out.num_volume_samples.to(torch.float32))
+    if return_chans:
+        return torch.stack(chans), rays, grid_out.iterations
     return _pixel_stage(torch.stack(chans), rays, gp, hcoef, tf,
                         p_axis=p_axis, Hi=Hi, RECT_A=RECT_A, R_warp=R_warp,
                         warp_variant=warp_variant,

@@ -50,22 +50,14 @@ from ..utils import cuda_build
 from .ray_setup import _SLICE_AXES, FrameUniforms, RaySetup, RenderOutput
 from .sweep_bricks import (CoarseMap, TileLists, _composite_lists, _f2i,
                            _f32, _interleaved, _PlainTiles, _walk_lists,
-                           count_passed, mark_reads, occupied_slabs,
-                           tile_lists, window_min)
+                           count_passed, mark_reads, n_steps_max,
+                           occupied_slabs, tile_lists, window_min)
 
 TILE_H = 8
 TILE_W = 128
 _INV255 = float(np.float32(1.0 / 255.0))
 
 LAUNCHES = {"sweep_slabs": 0, "slab_walk": 0}
-
-
-def n_steps_max(dim_max: int, sampling_factor: float) -> float:
-    """The reference's per-ray step budget floor(ceil(dim_max·√3)·sf), in
-    float32, the sample-count colour's denominator."""
-    f32 = np.float32
-    return float(np.floor(np.ceil(f32(dim_max) * np.sqrt(f32(3.0)))
-                          * f32(sampling_factor)))
 
 
 @dataclasses.dataclass(frozen=True)
