@@ -93,6 +93,29 @@ full-scale synthetic stag beetle (494x832x832 u8) into bench.py's engine
          held against their plain versions and timed;
      (c) the same for present (skipmode 3) and snake-grad (skipmode 2), at
          block size 4 and SPECIMEN_SCALE;
+  9. the per-ray marcher, edge repair and the scene pass, with the
+     counters at 0 before each run:
+     (a) a wide-FOV camera inside the volume (mixed principal-axis signs)
+         with bench.py's engine at skipmodes 2 and 3, 1280x720: the
+         frame falls back to the marcher after the TF edit's distance
+         kernels, and no K1, K7, K2 or K8 launches; ms/frame (median of
+         3 synced frames) and loop bodies; then the card's marcher held
+         against the CPU's on the same rays at scale 0.25, 256x144
+         (counters equal on all but 0.1 % of the covered pixels, colour
+         within 1e-4 where they are);
+     (b) ``cli --synth beetle --renderer marcher --output <png>``: the
+         marcher frame, its PNG and ms/frame;
+     (c) ``cli --synth beetle --edge-repair --output <png>``: K1 and K2,
+         then the marcher on the suspects; every repaired pixel equal in
+         colour to (b)'s marcher frame and its depth within 1e-6, every
+         other pixel the sweep frame's; the share of covered pixels
+         beyond 8/255 of the marcher frame strictly lower with the
+         repair; the sweep frame, the repair and the repaired frame
+         timed;
+     (d) ``cli --synth beetle --scene --output <png>``: the hall's depth
+         clips the rays and the XLA sweep renders the volume (no K1, K7,
+         K2 or K8); no volume hit lies behind the scene; the rasteriser
+         and the whole frame timed;
   7. prints the kernel table (each kernel's time, its plain version's,
      the least time the card could take for the same work, and a PyTorch
      call's where one computes the same function; a kernel's time is the
@@ -146,6 +169,26 @@ MATRIX_FRAMES, MATRIX_REPS = 5, 2
 MATRIX_RUNS = ((0, 4), (1, 4), (2, 4), (3, 4), (3, 2), (3, 6))  # beetle
 SPECIMENS = (("present", 3, 4), ("snake-grad", 2, 4))   # key, skipmode, b
 SPECIMEN_SCALE = 1.0
+# Phase 9: the per-ray marcher, edge repair and the scene pass.
+INSIDE = dict(radius=10.0, azimuth_deg=45.0, elevation_deg=35.0,
+              fovy_deg=120.0)   # a wide-FOV camera inside the volume
+MARCH_REPS = 3          # synced marcher frames timed per path
+# The card's marcher against the CPU's on a reduced beetle and the same
+# rays: counters equal on every pixel, colour within MARCH_COLOR_TOL.
+MARCH_SCALE, MARCH_WIDTH, MARCH_HEIGHT = 0.25, 256, 144
+MARCH_COLOR_TOL = 1e-4
+# The card's full ray setup (make_rays(full=True)) against the CPU's on the
+# same uniforms: coverage equal, and every field no further from a float64
+# evaluation than RAYS_FACTOR times the CPU's float32 result is (or one ulp
+# of the field's magnitude): the matrix products of the set-up sum in
+# another order on the card, so the fields differ in their last places,
+# amplified where the ray's entry cancels against the camera's position.
+RAYS_FACTOR = 2.0
+GAP_8 = 8.0 / 255.0     # the parity records' per-pixel threshold
+# The JAX package's own sweep-vs-marcher gap on beetle-grad, % of covered
+# pixels beyond 8/255 (docs/parity_r5.json; ROADMAP C): a record, not a
+# gate.
+JAX_BEETLE_GRAD_GAP = 0.38
 
 # The least time the card could take for a kernel's work: the larger of its
 # bytes (each input read once, each output written once) over the H100's
@@ -1503,6 +1546,313 @@ def phase_matrix(timer):
     return entry, rows, launches, results
 
 
+def rays_f64(u, height: int, width: int) -> dict:
+    """make_rays(full=True)'s arithmetic in float64 numpy on the same
+    float32 uniforms: the reference both devices' set-ups are held to."""
+    import numpy as np
+
+    f = lambda a: np.asarray(a, np.float64)
+    py, px = np.meshgrid(np.arange(height), np.arange(width), indexing="ij")
+    ndc = np.stack([(px + 0.5) / width * 2.0 - 1.0,
+                    (py + 0.5) / height * 2.0 - 1.0,
+                    np.zeros(px.shape), np.ones(px.shape)], -1)
+    world = ndc @ f(u.view_proj_inv).T
+    world = np.concatenate([world[..., :3] / world[..., 3:4],
+                            np.ones(px.shape + (1,))], -1)
+    o = f(u.cam_pos_tex)
+    d = (world @ f(u.global_to_tex).T)[..., :3] - o
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    plane = f(u.plane_tex)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        t0, t1 = (0.0 - o) / d, (1.0 - o) / d
+        t_near = np.minimum(t0, t1).max(-1)
+        t_far = np.maximum(t0, t1).min(-1)
+        s_d = d @ plane[:3]
+        t_plane = np.where(s_d != 0.0, -(plane[:3] @ o + plane[3]) / s_d,
+                           np.inf)
+        t_entry = np.where(s_d > 0.0, np.maximum(t_near, t_plane), t_near)
+        entry = o + t_entry[..., None] * d
+        t_min, t_max = -entry / d, (1.0 - entry) / d
+        exit_ = (np.maximum(t_min, t_max).min(-1, keepdims=True) * d
+                 + entry)
+    ones = np.ones(px.shape + (1,))
+    clip = (np.concatenate([entry - 0.5, ones], -1) @ f(u.model).T
+            @ (f(u.view).T @ f(u.proj).T))
+    return dict(valid=(t_entry < t_far) & (t_far > 0.0), ray_dir=d,
+                entry=entry, exit=exit_,
+                ray_distance=np.linalg.norm(exit_ - entry, axis=-1),
+                entry_clip_zw=clip[..., 2:4])
+
+
+def check_full_rays(eng, cam, width, height, ph):
+    """The card's full ray setup against the CPU's for ``cam`` on the
+    engine's volume: the same coverage, and every field within
+    RAYS_FACTOR times the CPU's own float32 error of the float64
+    reference (``rays_f64``). Returns the rays made on the CPU."""
+    import numpy as np
+    from vkvolume_tpu_torch.render.ray_setup import make_rays
+
+    u = eng._uniforms(cam, eng.volumes[0])
+    got, want = (make_rays(u, height, width, d, full=True)
+                 for d in ("cuda", "cpu"))
+    ref = rays_f64(u, height, width)
+    flips = int((got.valid.cpu() != want.valid).sum())
+    both = want.valid.numpy() & got.valid.cpu().numpy() & ref["valid"]
+    eps = float(np.finfo(np.float32).eps)
+    errs = {}
+    for k in ("ray_dir", "entry", "exit", "ray_distance", "entry_clip_zw"):
+        r = ref[k][both]
+        unit = eps * float(np.abs(r).max())
+        card, cpu = (float(np.abs(getattr(x, k).cpu().double().numpy()[both]
+                                  - r).max()) / unit for x in (got, want))
+        errs[k] = (card, cpu)
+    log(f"{ph}: make_rays(full=True) at {width}x{height}: card vs CPU "
+        f"coverage differs on {flips} of {int(want.valid.sum())} pixels; "
+        f"largest error from float64, card / CPU, in ulps of the field's "
+        f"magnitude: " + ", ".join(f"{k} {a:.3g} / {b:.3g}"
+                                   for k, (a, b) in errs.items()))
+    assert flips == 0, f"{ph}: the card's coverage differs on {flips} pixels"
+    assert all(a <= RAYS_FACTOR * max(b, 1.0) for a, b in errs.values()), \
+        f"{ph}: the card's ray set-up is less exact than the CPU's: {errs}"
+    return want
+
+
+def counted_march(eng, cam, rays):
+    """The engine's marcher on ``rays`` (copied to the engine's device),
+    with its sample counters on."""
+    import dataclasses
+
+    from vkvolume_tpu_torch.render.marcher import march
+
+    v = eng.volumes[0]
+    u = eng._uniforms(cam, v)
+    rays = dataclasses.replace(rays, **{
+        f.name: getattr(rays, f.name).to(eng.device)
+        for f in dataclasses.fields(rays)})
+    return march(v.density, v.gradient, v.dist_maps, eng._tf(v), rays,
+                 u.block_size, eng._pvm(cam, v),
+                 skipping_type=eng.options.skipping_type,
+                 early_ray_termination=eng.options.early_ray_termination,
+                 count_samples=True)
+
+
+def covered_share(color) -> float:
+    return float((color[..., 3] > 0).float().mean())
+
+
+def check_none(launches, keys, phase):
+    ran = {k: launches[k] for k in keys if launches[k]}
+    assert not ran, f"{phase}: {ran} launched"
+
+
+def phase_oracle(out_dir):
+    """(a) the mixed-sign fallback to the marcher, (b) ``--renderer
+    marcher``, (c) ``--edge-repair`` and (d) ``--scene``; returns the
+    numbers for the summary."""
+    import torch
+    from vkvolume_tpu_torch import cli
+    from vkvolume_tpu_torch.bench.datasets import DATASETS, synthesize
+    from vkvolume_tpu_torch.bench.harness import make_engine
+    from vkvolume_tpu_torch.camera import orbit_camera
+    from vkvolume_tpu_torch.engine.engine import suspect_mask
+    from vkvolume_tpu_torch.options import Test
+    from vkvolume_tpu_torch.render.forward import rasterize, sponza_lite
+    from vkvolume_tpu_torch.utils.image import read_png
+
+    res = {}
+    W, H = CLI_WIDTH, CLI_HEIGHT
+    sweeps_and_warps = ("K1", "K1 texture", "K7", "K2", "K8")
+    # (a) The mixed-sign view at skipmodes 2 and 3 (bench.py's engine:
+    # clip distance 1, ERT on), the TF edit included in the counts.
+    beetle = synthesize(DATASETS["beetle"], seed=0)
+    small = synthesize(DATASETS["beetle"], seed=0, scale=MARCH_SCALE)
+    for sm, dist in ((2, ("K5", "K4 two-sided")), (3, ("K3", "K4"))):
+        ph = f"phase 9a skipmode {sm}"
+        reset_launches()
+        eng = make_engine("beetle", sm, 4, volume_u8=beetle, test=Test.NONE,
+                          ert=True, device="cuda")[0]
+        cam = orbit_camera(aspect=W / H, **INSIDE)
+        out = eng.render(cam, W, H)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        log(f"{ph}: launches {launches}")
+        assert eng.last_renderer == "marcher", eng.last_renderer
+        check_none(launches, sweeps_and_warps, ph)
+        assert all(launches[k] > 0 for k in dist), \
+            f"{ph}: the TF edit's distance kernels never ran"
+        assert tuple(out.color.shape) == (H, W, 4)
+        assert bool(torch.isfinite(out.color).all())
+        cov = covered_share(out.color)
+        assert cov >= MIN_COVERED, f"{ph}: frame nearly empty ({cov})"
+        ms = synced_ms(lambda: eng.render(cam, W, H), MARCH_REPS)
+        res[f"marcher_sm{sm}"] = (statistics.median(ms), out.iterations)
+        log(f"{ph}: {W}x{H} covered share {cov:.4f}, mean alpha "
+            f"{float(out.color[..., 3].mean()):.4f}, iterations "
+            f"{out.iterations}, ms/frame median={statistics.median(ms):.4f} "
+            f"reps={[round(r, 4) for r in ms]}")
+        if sm == 2:
+            check_full_rays(eng, cam, W, H, ph)
+        del eng, out
+        # The card's marcher against the CPU's on the reduced beetle, on
+        # the same rays (the CPU's; the card's set-up is held against them
+        # above and here).
+        cam_s = orbit_camera(aspect=MARCH_WIDTH / MARCH_HEIGHT, **INSIDE)
+        engs = [make_engine("beetle", sm, 4, volume_u8=small,
+                            test=Test.NONE, ert=True, device=d)[0]
+                for d in ("cuda", "cpu")]
+        rays = check_full_rays(engs[0], cam_s, MARCH_WIDTH, MARCH_HEIGHT, ph)
+        got, want = (counted_march(e, cam_s, rays) for e in engs)
+        cov = want.color[..., 3] > 0
+        same = torch.ones_like(cov)
+        for k in ("num_volume_samples", "num_distance_samples",
+                  "num_empty_samples"):
+            same &= getattr(got, k).cpu() == getattr(want, k)
+        diff = (got.color.cpu() - want.color).abs().amax(-1)
+        flips = int((~same).sum())
+        err = float(diff.max())
+        log(f"{ph}: card vs CPU marcher at scale "
+            f"{MARCH_SCALE} {MARCH_WIDTH}x{MARCH_HEIGHT}: counters "
+            f"differ on {flips} pixels ({int(cov.sum())} covered), "
+            f"colour err {err:.3g}, samples "
+            f"{int(want.num_volume_samples.sum())} + "
+            f"{int(want.num_distance_samples.sum())} skips, iterations "
+            f"{got.iterations} / {want.iterations}")
+        assert flips == 0 and err <= MARCH_COLOR_TOL
+        assert got.iterations == want.iterations
+        assert int(want.num_distance_samples.sum()) > 0
+        del got, want, engs
+        torch.cuda.empty_cache()
+    del beetle, small
+
+    args = ["--synth", "beetle"]
+    cam = cli.cli_camera(W, H)
+
+    def png_covered(png, ph):
+        img = read_png(png)
+        assert img.shape == (H, W, 3)
+        c = float((img.max(axis=-1) > 0).mean())
+        log(f"{ph}: PNG {img.shape} covered share {c:.4f}")
+        assert c >= MIN_COVERED, f"{ph}: PNG nearly empty ({c})"
+
+    # (b) --renderer marcher: the CLI frame through the marcher.
+    ph = "phase 9b --renderer marcher"
+    png = os.path.join(out_dir, "cli_marcher.png")
+    reset_launches()
+    eng, _, ref = cli.run(args + ["--renderer", "marcher", "--output", png])
+    torch.cuda.synchronize()
+    launches = read_launches()
+    log(f"{ph}: launches {launches}")
+    assert eng.last_renderer == "marcher"
+    check_none(launches, sweeps_and_warps, ph)
+    png_covered(png, ph)
+    check_full_rays(eng, cam, W, H, ph)
+    ms = synced_ms(lambda: eng.render(cam, W, H), MARCH_REPS)
+    res["marcher_cli"] = (statistics.median(ms), ref.iterations)
+    log(f"{ph}: iterations {ref.iterations}, ms/frame median="
+        f"{statistics.median(ms):.4f} reps={[round(r, 4) for r in ms]}")
+    del eng
+    torch.cuda.empty_cache()
+
+    # (c) --edge-repair: the CLI frame (K1, K2), then the marcher on its
+    # suspects.
+    ph = "phase 9c --edge-repair"
+    png = os.path.join(out_dir, "cli_repair.png")
+    reset_launches()
+    eng, _, rep = cli.run(args + ["--edge-repair", "--output", png])
+    torch.cuda.synchronize()
+    launches = read_launches()
+    log(f"{ph}: launches {launches}")
+    assert eng.last_renderer == "pallas"
+    assert all(launches[k] > 0 for k in ("K1", "K1 walk", "K2")), \
+        f"{ph}: the sweep frame's kernels never ran"
+    n_found, K = eng.last_repair_px
+    assert 0 < n_found and K > 0
+    png_covered(png, ph)
+    eng.options.edge_repair = False
+    plain = eng.render(cam, W, H)
+    idx = suspect_mask(plain.color, plain.depth).reshape(-1).nonzero()[:, 0]
+    assert idx.numel() == n_found
+    idx = idx[:K]
+    c_rep, c_ref = rep.color.reshape(-1, 4), ref.color.reshape(-1, 4)
+    assert torch.equal(c_rep[idx], c_ref[idx]), \
+        f"{ph}: repaired pixels differ from the marcher frame"
+    d_err = float((rep.depth.reshape(-1)[idx]
+                   - ref.depth.reshape(-1)[idx]).abs().max())
+    assert d_err <= 1e-6, f"{ph}: repaired depth differs by {d_err}"
+    keep = torch.ones(H * W, dtype=torch.bool, device=rep.color.device)
+    keep[idx] = False
+    assert torch.equal(c_rep[keep], plain.color.reshape(-1, 4)[keep])
+    covered = (ref.color[..., 3] > 0) | (plain.color[..., 3] > 0)
+
+    def gap(color):
+        d = (color - ref.color).abs().amax(-1) > GAP_8
+        return 100.0 * float(d[covered].float().mean())
+
+    g_plain, g_rep = gap(plain.color), gap(rep.color)
+    log(f"{ph}: suspects n_found={n_found} K={K}; repaired pixels equal "
+        f"to the marcher frame, depth within {d_err:.3g}; covered pixels "
+        f"beyond 8/255 of the marcher frame: {g_plain:.4f} % without "
+        f"repair, {g_rep:.4f} % with (the JAX package's beetle-grad "
+        f"sweep-vs-marcher record: {JAX_BEETLE_GRAD_GAP} %, a record, not a"
+        f" gate)")
+    assert g_rep < g_plain, f"{ph}: the repair did not close the gap"
+    v = eng.volumes[0]
+    sweep_ms = synced_ms(lambda: eng.render(cam, W, H), MARCH_REPS)
+    repair_ms = synced_ms(lambda: eng._edge_repair(plain, v, cam, W, H, None),
+                          MARCH_REPS)
+    eng.options.edge_repair = True
+    both_ms = synced_ms(lambda: eng.render(cam, W, H), MARCH_REPS)
+    res["repair"] = dict(n_found=n_found, K=K, gap_plain=g_plain,
+                         gap_repaired=g_rep,
+                         sweep_ms=statistics.median(sweep_ms),
+                         repair_ms=statistics.median(repair_ms),
+                         frame_ms=statistics.median(both_ms))
+    log(f"{ph}: ms median: sweep frame {res['repair']['sweep_ms']:.4f}, "
+        f"repair alone {res['repair']['repair_ms']:.4f}, frame with repair "
+        f"{res['repair']['frame_ms']:.4f} ({MARCH_REPS} synced reps each)")
+    del eng, rep, ref, plain
+    torch.cuda.empty_cache()
+
+    # (d) --scene: the hall's depth clips the rays; the XLA sweep renders
+    # the volume, never the w-grid frame.
+    ph = "phase 9d --scene"
+    png = os.path.join(out_dir, "cli_scene.png")
+    reset_launches()
+    eng, _, out = cli.run(args + ["--scene", "--output", png])
+    torch.cuda.synchronize()
+    launches = read_launches()
+    log(f"{ph}: launches {launches}")
+    assert eng.last_renderer == "sweep"
+    check_none(launches, sweeps_and_warps, ph)
+    png_covered(png, ph)
+    mesh = sponza_lite()
+    _, scene_depth = rasterize(mesh, cam, H, W, device="cuda")
+    eng.options.depth_attachment = True
+    vol = eng.render(cam, W, H, depth_image=scene_depth)
+    eng.options.depth_attachment = False
+    hit = (vol.color[..., 3] > 0) & (scene_depth > 0)
+    behind = int((vol.depth[hit] < scene_depth[hit]).sum())
+    log(f"{ph}: scene covers {float((scene_depth > 0).float().mean()):.4f} "
+        f"of the frame; {int(hit.sum())} volume hits over the scene, "
+        f"{behind} behind it")
+    assert hit.any() and behind == 0, f"{ph}: {behind} hits behind the scene"
+    assert bool((out.depth >= scene_depth).all())
+    assert torch.equal(out.color, eng.render_with_scene(cam, W, H,
+                                                        mesh).color)
+    raster_ms = synced_ms(lambda: rasterize(mesh, cam, H, W, device="cuda"),
+                          MARCH_REPS)
+    scene_ms = synced_ms(lambda: eng.render_with_scene(cam, W, H, mesh),
+                         MARCH_REPS)
+    res["scene"] = dict(raster_ms=statistics.median(raster_ms),
+                        frame_ms=statistics.median(scene_ms))
+    log(f"{ph}: ms median: rasteriser {res['scene']['raster_ms']:.4f}, "
+        f"whole frame {res['scene']['frame_ms']:.4f} ({MARCH_REPS} synced "
+        f"reps each)")
+    del eng, out, vol
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -1546,6 +1896,10 @@ def main() -> int:
     entry, matrix_rows, matrix_launches, matrix_results = phase_matrix(
         gpu_timer)
     log(f"phase 8: {time.perf_counter() - t8:.1f} s")
+    t9 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out_dir:
+        oracle = phase_oracle(out_dir)
+    log(f"phase 9: {time.perf_counter() - t9:.1f} s")
     for more in (cli_rows, accel_rows, orbit_rows, tex_rows, matrix_rows):
         rows.update(more)
     assert "jax" not in sys.modules
@@ -1667,6 +2021,16 @@ def main() -> int:
             f"{r.framerate:.2f} fps ({r.frame_ms:.4f} ms), update "
             f"{r.update:.4f} ms, occupancy {r.occupancy:.4f} % "
             f"({MATRIX_SIZE}x{MATRIX_SIZE}, {MATRIX_REPS}x{MATRIX_FRAMES})")
+    for k in ("marcher_sm2", "marcher_sm3", "marcher_cli"):
+        log(f"{k}_ms_median {oracle[k][0]:.4f} iterations {oracle[k][1]} "
+            f"({CLI_WIDTH}x{CLI_HEIGHT})")
+    r = oracle["repair"]
+    log(f"edge repair: n_found {r['n_found']} K {r['K']}, gap beyond 8/255 "
+        f"{r['gap_plain']:.4f} % -> {r['gap_repaired']:.4f} %, ms sweep "
+        f"frame {r['sweep_ms']:.4f}, repair {r['repair_ms']:.4f}, frame with "
+        f"repair {r['frame_ms']:.4f}")
+    log(f"scene: rasteriser {oracle['scene']['raster_ms']:.4f} ms, frame "
+        f"{oracle['scene']['frame_ms']:.4f} ms")
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -19,6 +19,7 @@ from vkvolume_tpu.camera import fit_distance as j_fit_distance
 from vkvolume_tpu.camera import orbit_camera as j_orbit_camera
 from vkvolume_tpu.render import sweep_pallas
 from vkvolume_tpu_torch import cli as tcli
+from vkvolume_tpu_torch.cli import cli_camera as cli_camera_t
 from vkvolume_tpu_torch.options import SkippingType
 from vkvolume_tpu_torch.utils.image import composite_over, read_png, to_u8
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
@@ -100,9 +101,7 @@ def test_png_is_the_composited_frame(frames):
     assert (img.max(-1) > 0).mean() > 0.05
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--renderer", "marcher"], "item 10"), (["--scene"], "item 16"),
-    (["--edge-repair"], "items 10 and 11"), (["--gradient_test"], "item 5")])
+@pytest.mark.parametrize("flags,item", [(["--gradient_test"], "item 5")])
 def test_unported_flags_raise(flags, item):
     args = tcli.build_parser().parse_args(["--device", "cpu"] + flags)
     with pytest.raises(NotImplementedError, match=f"ROADMAP queue A, {item}"):
@@ -193,6 +192,138 @@ def test_ported_flags_match_jax_cli(tmp_path, flags):
         assert abs(got[..., 3].mean() - want[..., 3].mean()) <= 1e-4
     np.testing.assert_array_equal(read_png(png),
                                   to_u8(composite_over(got)))
+
+
+def _win3(x, fill, op):
+    """``op`` over each pixel's 3×3 window (edges padded with ``fill``)."""
+    H, W = x.shape[:2]
+    p = np.pad(x, [(1, 1), (1, 1)] + [(0, 0)] * (x.ndim - 2),
+               constant_values=fill)
+    return op(np.stack([p[i:i + H, j:j + W] for i in range(3)
+                        for j in range(3)]), axis=0)
+
+
+def _suspects(color, depth):
+    """Edge repair's suspect mask of a frame (the engines' 3×3 range tests
+    of alpha, depth and colour, dilated once) and, per pixel, how close
+    the nearest of its three range terms lies to its threshold."""
+    def rng3(x):
+        return (_win3(x, -np.inf, np.max) - _win3(x, np.inf, np.min))
+
+    terms = [(rng3(color[..., 3]), 0.04), (rng3(depth), 0.01),
+             (rng3(color[..., :3]).max(-1), 0.08)]
+    raw = np.zeros(depth.shape, bool)
+    margin = np.full(depth.shape, np.inf)
+    for t, thr in terms:
+        raw |= t > thr
+        margin = np.minimum(margin, np.abs(t - thr))
+    return _win3(raw, False, np.any), margin
+
+
+@pytest.mark.parametrize("flags,route", [
+    (["--renderer", "marcher"], "marcher"), (["--edge-repair"], "pallas"),
+    (["--scene"], "sweep")])
+def test_marcher_repair_and_scene_flags_match_jax_cli(tmp_path, flags,
+                                                      route):
+    """The per-ray marcher, edge repair (the w-grid frame, then the
+    marcher on its suspects) and the scene pass (the hall's depth clips
+    the rays; the XLA sweep renders the frame) through the port's CLI on
+    the CPU, against the JAX CLI's set-up and path at scale 0.05 (its
+    Pallas frame in interpret mode)."""
+    from vkvolume_tpu.render.forward import sponza_lite
+
+    w, h = 256, 264
+    args = ["--synth", "beetle", "--synth-scale", "0.05", "--width", str(w),
+            "--height", str(h)] + flags
+    png = str(tmp_path / "port.png")
+    teng, _, tout = tcli.run(args + ["--device", "cpu", "--output", png])
+    jargs = jcli.build_parser().parse_args(args)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jutils, "enable_compile_cache", lambda *a, **k: None)
+        mp.setattr(sweep_pallas, "_frame_jit", functools.partial(
+            sweep_pallas._frame_jit, interpret=True))
+        jeng, jvols = jcli.setup_engine(jargs)
+        for v in jvols:
+            jeng.add_volume(v)
+        aspect = w / h
+        cam = j_orbit_camera(
+            radius=j_fit_distance(50.0, np.deg2rad(60.0), aspect) * 1.3,
+            azimuth_deg=30.0, elevation_deg=20.0, aspect=aspect)
+        if "--scene" in flags:
+            jout = jeng.render_with_scene(cam, w, h, sponza_lite())
+        else:
+            jout = jeng.render(cam, w, h)
+    assert teng.last_renderer == jeng.last_renderer == route
+    if "--edge-repair" in flags:
+        # The suspects differ only where a mask term of a pixel's window
+        # lies within 1e-4 of its threshold in either frame (the frames
+        # before the repair differ by the warp's u16 encoding): 3 of the
+        # 6034 JAX suspects at this pose (the port finds 6031).
+        assert teng.last_repair_px[1] == int(jeng.last_repair_px[1])
+        n_port, n_jax = teng.last_repair_px[0], int(jeng.last_repair_px[0])
+        for e in (teng, jeng):
+            e.options.edge_repair = False
+        t0 = teng.render(cli_camera_t(w, h), w, h)
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(sweep_pallas, "_frame_jit", functools.partial(
+                sweep_pallas._frame_jit, interpret=True))
+            j0 = jeng.render(cam, w, h)
+        mt, margin_t = _suspects(t0.color.numpy(), t0.depth.numpy())
+        mj, margin_j = _suspects(np.asarray(j0.color), np.asarray(j0.depth))
+        assert (mt.sum(), mj.sum()) == (n_port, n_jax)
+        near = _win3(np.minimum(margin_t, margin_j) <= 1e-4, False, np.any)
+        differ = mt != mj
+        assert not (differ & ~near).any()
+        assert differ.sum() <= 1e-3 * n_jax, differ.sum()
+    want = np.asarray(jout.color)
+    got = tout.color.numpy()
+    assert got.shape == (h, w, 4) and np.isfinite(got).all()
+    assert (want[..., 3] > 0).mean() > 0.05           # real content
+    bad = (np.abs(got - want).max(axis=-1) > 2e-3).mean()
+    assert bad <= 1e-3, bad
+    assert abs(got[..., 3].mean() - want[..., 3].mean()) <= 1e-4
+    np.testing.assert_array_equal(read_png(png),
+                                  to_u8(composite_over(got)))
+
+
+def test_sweep_vs_marcher_gap_matches_jax_cli():
+    """The share of covered pixels where the CLI's w-grid frame lies more
+    than 8/255 from the marcher frame at the same pose (``chip_smoke.py``
+    phase 9c's measure), in both packages at the CLI pose, scale 0.25 and
+    384x216: 477 of the 6302 covered pixels (7.57 %) in each. The share
+    depends on the volume's scale and the frame's size, so the packages
+    are compared at one pose and size."""
+    w, h = 384, 216
+    args = ["--synth", "beetle", "--synth-scale", "0.25", "--width", str(w),
+            "--height", str(h)]
+    teng, _, tout = tcli.run(args + ["--device", "cpu"])
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jutils, "enable_compile_cache", lambda *a, **k: None)
+        mp.setattr(sweep_pallas, "_frame_jit", functools.partial(
+            sweep_pallas._frame_jit, interpret=True))
+        jeng, jvols = jcli.setup_engine(jcli.build_parser().parse_args(args))
+        for v in jvols:
+            jeng.add_volume(v)
+        aspect = w / h
+        cam = j_orbit_camera(
+            radius=j_fit_distance(50.0, np.deg2rad(60.0), aspect) * 1.3,
+            azimuth_deg=30.0, elevation_deg=20.0, aspect=aspect)
+        jout = jeng.render(cam, w, h)
+    assert teng.last_renderer == jeng.last_renderer == "pallas"
+    teng.renderer = jeng.renderer = "marcher"
+    tm = teng.render(cli_camera_t(w, h), w, h)
+    jm = jeng.render(cam, w, h)
+
+    def gap(color, ref):
+        covered = (ref[..., 3] > 0) | (color[..., 3] > 0)
+        far = np.abs(color - ref).max(-1) > 8.0 / 255.0
+        return int(far[covered].sum()), int(covered.sum())
+
+    (n_t, cov_t), (n_j, cov_j) = (gap(tout.color.numpy(), tm.color.numpy()),
+                                  gap(np.asarray(jout.color),
+                                      np.asarray(jm.color)))
+    assert n_j > 0.01 * cov_j                     # a gap worth comparing
+    assert abs(n_t - n_j) <= 1e-3 * cov_j, (n_t, cov_t, n_j, cov_j)
 
 
 def test_no_cuda_device_fails_loudly():

@@ -54,7 +54,7 @@ def test_render_blends_like_jax_engine(seed, monkeypatch):
         return JOutput(**{k: jnp.asarray(v) for k, v in o.items()},
                        iterations=jnp.int32(1))
 
-    def t_render_volume(volume, camera, width, height):
+    def t_render_volume(volume, camera, width, height, depth_image=None):
         o = outs[index(teng.volumes, volume)]
         return TOutput(**{k: torch.from_numpy(v) for k, v in o.items()},
                        iterations=1)

@@ -24,7 +24,6 @@ from vkvolume_tpu.render import sweep as jsweep
 from vkvolume_tpu.render import sweep_pallas as jsp
 from vkvolume_tpu.tf import tf_params
 from vkvolume_tpu_torch import interop
-from vkvolume_tpu_torch.render import frustum as tfr
 from vkvolume_tpu_torch.render import ray_setup as trs
 from vkvolume_tpu_torch.render import sweep_slabs
 from vkvolume_tpu_torch.render.sweep_bricks import sector_map
@@ -167,7 +166,7 @@ def test_grid_rays_match_separable_kernel_interpret(scenes, tfk, leap, ert,
         R=plan["R_sweep"], ert=ert, test=jsp.Test.NONE, count_samples=count,
         n_slabs=n_slabs, interpret=True, separable=True, dist_leap=leap)
     tu = interop.uniforms_from_numpy(vars(u))
-    port_rays = tfr.rays_from_dirs(tu, torch.from_numpy(
+    port_rays = trs.rays_from_dirs(tu, torch.from_numpy(
         np.asarray(rays.ray_dir)))
     for name in ("valid", "entry", "exit"):
         np.testing.assert_allclose(

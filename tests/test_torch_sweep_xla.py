@@ -28,8 +28,7 @@ from vkvolume_tpu.render.ray_setup import make_uniforms as j_make_uniforms
 from vkvolume_tpu_torch import interop
 from vkvolume_tpu_torch.options import Test as TTest
 from vkvolume_tpu_torch.render import sweep as tsweep
-from vkvolume_tpu_torch.render.frustum import rays_from_dirs
-from vkvolume_tpu_torch.render.ray_setup import make_rays
+from vkvolume_tpu_torch.render.ray_setup import make_rays, rays_from_dirs
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 SIZE = 64

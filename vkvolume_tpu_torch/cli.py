@@ -22,9 +22,12 @@ run_sweep``: six dataset/TF configurations, skipmodes 0-3, block sizes
 at ``--synth-scale``) on ``--device`` and writes
 ``benchmark_results_<skipmode>.csv`` in the working directory.
 
-Not ported yet (each raises NotImplementedError naming its ROADMAP item):
-``--renderer marcher``, ``--scene``, ``--edge-repair`` and
-``--gradient_test``.
+``--renderer marcher`` renders every frame through the per-ray marcher,
+``--edge-repair`` re-marches the frame's resampling-suspect pixels with
+it, and ``--scene`` renders the demo hall mesh (``render/forward.py``),
+clips the volume's rays at its depth and composites the volume over it.
+Not ported yet: ``--gradient_test`` (it raises NotImplementedError naming
+ROADMAP queue A, item 5).
 ``--debug-nans`` is accepted and does nothing: it switches on a JAX NaN
 trap that PyTorch's eager execution has no counterpart for.
 """
@@ -85,10 +88,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "variant, transfer_function.glsl:36-38)")
     p.add_argument("--edge-repair", action="store_true",
                    help="re-march resampling-suspect pixels with the "
-                        "per-ray marcher (not ported)")
+                        "per-ray marcher")
     p.add_argument("--scene", action="store_true",
-                   help="render the demo hall mesh around the volume "
-                        "(not ported)")
+                   help="render the demo hall mesh around the volume")
     p.add_argument("--azimuth", type=float, default=30.0)
     p.add_argument("--elevation", type=float, default=20.0)
     p.add_argument("--spin", type=float, default=0.0, metavar="DEG",
@@ -104,7 +106,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "(brick or per-slab sweep; two-pass, single-pass "
                         "or gather warp, as the view's plan says; the XLA "
                         "sweep for the views it cannot take); sweep = the "
-                        "XLA plane sweep; marcher is not ported")
+                        "XLA plane sweep; marcher = the per-ray marcher")
     p.add_argument("--debug-nans", action="store_true",
                    help="accepted and ignored: a JAX NaN trap with no "
                         "counterpart in PyTorch's eager execution")
@@ -119,16 +121,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _refuse_unported(args) -> None:
-    unported = [
-        (args.renderer == "marcher", "--renderer marcher",
-         "queue A, item 10"),
-        (args.scene, "--scene", "queue A, item 16"),
-        (args.edge_repair, "--edge-repair", "queue A, items 10 and 11"),
-        (args.gradient_test, "--gradient_test", "queue A, item 5"),
-    ]
-    for hit, flag, item in unported:
-        if hit:
-            raise NotImplementedError(f"{flag}: ROADMAP {item}")
+    if args.gradient_test:
+        raise NotImplementedError("--gradient_test: ROADMAP queue A, item 5")
 
 
 def setup_engine(args):
@@ -157,6 +151,7 @@ def setup_engine(args):
         early_ray_termination=not args.no_ert,
         test=Test(args.test),
         texture_tf=args.texture_tf,
+        edge_repair=args.edge_repair,
     )
     engine = Engine(render_opts, benchmark_mode=args.benchmark > 0,
                     renderer=args.renderer, device=device)
@@ -240,7 +235,13 @@ def run(argv=None):
     else:
         cam = cli_camera(args.width, args.height, args.azimuth,
                          args.elevation)
-        out = engine.render(cam, args.width, args.height)
+        if args.scene:
+            from .render.forward import sponza_lite
+
+            out = engine.render_with_scene(cam, args.width, args.height,
+                                           sponza_lite())
+        else:
+            out = engine.render(cam, args.width, args.height)
         engine._sync()
 
     if args.output:

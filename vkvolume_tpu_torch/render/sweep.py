@@ -92,8 +92,8 @@ def sweep(vol_t: torch.Tensor, grad_t: torch.Tensor | None,
     (``transpose_for_axis``), ``occupancy_t`` the (mp, mv, mu) skip map
     (0 = occupied) in the same permutation, or None to sample every slab
     (the JAX sweep's ``skipping=False``), ``rays`` a RaySetup
-    with entry and exit (``frustum.rays_from_dirs``), ``proj_view_model`` the host
-    (4, 4) float32 matrix of the first-hit depth and ``tf_texture`` the
+    with entry and exit (``ray_setup.rays_from_dirs``), ``proj_view_model``
+    the host (4, 4) float32 matrix of the first-hit depth and ``tf_texture`` the
     (256, 256, 4) u8 baked texture (None: the closed form)."""
     f = torch.float32
     H, W = rays.valid.shape

@@ -37,9 +37,8 @@ import torch
 from ..options import Test
 from . import plan as plan_mod
 from . import sweep_bricks, sweep_slabs, warp_cuda
-from .frustum import rays_from_dirs
 from .ray_setup import (_SLICE_AXES, FrameUniforms, RaySetup, RenderOutput,
-                        make_rays)
+                        make_rays, rays_from_dirs)
 
 TILE_W = 128
 _WARP_RECT_W = 640     # the single-pass warp's rect (warp_pallas.RECT_W)

@@ -86,7 +86,7 @@ def slab_inputs(vol_t: torch.Tensor, occupancy_t: torch.Tensor, tf: TFParams,
                 count_samples: bool, n_slabs: int, dist_leap: bool,
                 separable: bool = False) -> SlabInputs:
     """K7's inputs: the prologue of ``_sweep_pallas_jit``. ``rays`` needs
-    entry and exit (``frustum.rays_from_dirs``); ``grad_t`` is read only
+    entry and exit (``ray_setup.rays_from_dirs``); ``grad_t`` is read only
     with a gradient TF."""
     H, W = rays.valid.shape
     if H % TILE_H or W % TILE_W:
