@@ -189,6 +189,20 @@ GAP_8 = 8.0 / 255.0     # the parity records' per-pixel threshold
 # pixels beyond 8/255 (docs/parity_r5.json; ROADMAP C): a record, not a
 # gate.
 JAX_BEETLE_GRAD_GAP = 0.38
+# Phase 10: an inverted intensity range with a gradient term on bench.py's
+# engine (imin, imax, gmin, gmax); the CLI-frame pose whose engine plan
+# takes another axis than the host analysis (render_frame then plans from
+# the rays' device statistics); the viewer's frame size.
+INVERTED_TF = (0.5, 0.2, 0.1, 0.3)
+# A second inverted TF whose lower edges lie on u8 levels (0.6 = 153/255,
+# 1/3 = 85/255), as the viewer's sliders give them: there one rounding more
+# or less (a fused multiply-add) flips the level's voxels. Phase 10a holds
+# the card's per-voxel test to the CPU's at this TF on the volume, and at
+# every such level (``fma_edge_levels``) on every u8 (intensity, gradient)
+# pair, since the volume need not hold voxels on both edges.
+U8_EDGE_TF = (0.6, 0.1, 1.0 / 3.0, 0.999)
+DEVICE_STATS_AZIMUTH = 45.0
+VIEWER_WIDTH, VIEWER_HEIGHT = 960, 540
 
 # The least time the card could take for a kernel's work: the larger of its
 # bytes (each input read once, each output written once) over the H100's
@@ -484,8 +498,8 @@ def phase_kernels(eng, cam, timer):
     rows = {}
     v = eng.volumes[0]
     o = v.options
-    ti, tg = _tf_thresholds((o.intensity_min, o.intensity_max,
-                             o.gradient_min, o.gradient_max))
+    ti, tg = _tf_thresholds(None, (o.intensity_min, o.intensity_max,
+                                   o.gradient_min, o.gradient_max))
     occ = _occupancy_u8(v.density, None, v.map_shape_zyx, ti, tg)
 
     rows["K3"], rows["K4"] = aniso_rows(occ, v.dist_maps, timer, "phase 2")
@@ -672,10 +686,10 @@ def read_launches():
             "K7 walk": sweep_slabs.LAUNCHES["slab_walk"]}
 
 
-def plain_frame(eng, cam, width=WIDTH, height=HEIGHT):
-    """The same frame with K1, K2, K7 and K8 swapped for their plain
-    versions (the maps are the kernels', held bit-exact to the plain maps
-    in phases 2 and 4)."""
+@contextlib.contextmanager
+def plain_kernels():
+    """K1, K2, K7 and K8 swapped for their plain versions inside the
+    block."""
     from vkvolume_tpu_torch.render import sweep_bricks, sweep_slabs, warp_cuda
 
     saved = (sweep_bricks.sweep_bricks_kernel, warp_cuda.warp_two_pass,
@@ -687,11 +701,19 @@ def plain_frame(eng, cam, width=WIDTH, height=HEIGHT):
     sweep_slabs.sweep_slabs_kernel = sweep_slabs.sweep_slabs_plain
     warp_cuda.warp_to_pixels = warp_cuda.warp_to_pixels_plain
     try:
-        return eng.render(cam, width, height)
+        yield
     finally:
         (sweep_bricks.sweep_bricks_kernel, warp_cuda.warp_two_pass,
          warp_cuda.warp_two_pass_b, sweep_slabs.sweep_slabs_kernel,
          warp_cuda.warp_to_pixels) = saved
+
+
+def plain_frame(eng, cam, width=WIDTH, height=HEIGHT):
+    """The same frame with K1, K2, K7 and K8 swapped for their plain
+    versions (the maps are the kernels', held bit-exact to the plain maps
+    in phases 2 and 4)."""
+    with plain_kernels():
+        return eng.render(cam, width, height)
 
 
 def frame_reps(eng, cam, width, height):
@@ -826,8 +848,8 @@ def phase_cli(timer, out_dir):
     # The isotropic map: bit-exact to the plain transform; K5 and the
     # two-sided K4 each against their plain versions.
     o = v.options
-    ti, tg = _tf_thresholds((o.intensity_min, o.intensity_max,
-                             o.gradient_min, o.gradient_max))
+    ti, tg = _tf_thresholds(None, (o.intensity_min, o.intensity_max,
+                                   o.gradient_min, o.gradient_max))
     occ = _occupancy_u8(v.density, v.gradient, v.map_shape_zyx, ti, tg)
     assert torch.equal(v.dist_maps[0], distance.isotropic_distance(occ)), \
         "engine isotropic map differs from the plain transform"
@@ -919,8 +941,8 @@ def phase_accel(eng, timer):
 
     v = eng.volumes[0]
     o = v.options
-    ti, tg = _tf_thresholds((o.intensity_min, o.intensity_max,
-                             o.gradient_min, o.gradient_max))
+    ti, tg = _tf_thresholds(None, (o.intensity_min, o.intensity_max,
+                                   o.gradient_min, o.gradient_max))
     occ = _occupancy_u8(v.density, v.gradient, v.map_shape_zyx, ti, tg)
     torch.cuda.synchronize()
     reset_launches()
@@ -1413,22 +1435,38 @@ def phase_entry() -> dict:
     return r
 
 
+def fma_edge_levels() -> list:
+    """The u8 levels L whose TF edge lo = f32(L / 255) makes the
+    occupancy test's ``f32(L) * f32(1/255) - lo`` exactly 0 when each
+    operation rounds on its own, but not when a fused multiply-add rounds
+    once: at such an edge a fusion flips the level's voxels."""
+    import numpy as np
+
+    inv = np.float32(1.0 / 255.0)
+    levels = []
+    for level in range(1, 256):
+        lo = np.float32(level / 255.0)
+        if (np.float32(np.float32(level) * inv) - lo == 0
+                and float(np.float32(level)) * float(inv) != float(lo)):
+            levels.append(level)
+    return levels
+
+
 def plain_maps(eng):
     """(occupancy map, skip maps) of the engine's volume from the plain
-    versions: the occupancy map, then the distance transforms of the
-    engine's skipping type, as the engine builds them."""
+    versions: the occupancy map (the integer or the float path, with the
+    gradient map or on the fly, as the engine builds it), then the
+    distance transforms of the engine's skipping type."""
     from vkvolume_tpu_torch.accel import distance
-    from vkvolume_tpu_torch.accel.occupancy import (_occupancy_u8,
-                                                    _tf_thresholds)
+    from vkvolume_tpu_torch.accel.occupancy import occupancy_map
     from vkvolume_tpu_torch.options import SkippingType
 
     v = eng.volumes[0]
     o = v.options
-    ti, tg = _tf_thresholds((o.intensity_min, o.intensity_max,
-                             o.gradient_min, o.gradient_max))
-    occ = _occupancy_u8(v.density,
-                        v.gradient if eng._tf(v).use_gradient else None,
-                        v.map_shape_zyx, ti, tg)
+    occ = occupancy_map(v.density, v.gradient, eng._tf(v), v.map_shape_zyx,
+                        on_the_fly_gradient=not o.use_precomputed_gradient,
+                        tf_host=(o.intensity_min, o.intensity_max,
+                                 o.gradient_min, o.gradient_max))
     skipping_type = eng.options.skipping_type
     if skipping_type == SkippingType.ANISOTROPIC_DISTANCE:
         return occ, distance.anisotropic_distance(occ)
@@ -1853,6 +1891,366 @@ def phase_oracle(out_dir):
     return res
 
 
+def phase_api(out_dir):
+    """(a) an inverted TF range on bench.py's engine (the float occupancy
+    path), (b) ``--gradient_test``, (c) ``render_frame`` on caller rays and
+    its device-statistics plan, (d) the accel cache, (e) the viewer;
+    returns the numbers for the summary and each step's launches."""
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+    from vkvolume_tpu_torch import cli
+    from vkvolume_tpu_torch.accel.occupancy import (_occupancy_general,
+                                                    _occupancy_u8,
+                                                    _tf_thresholds,
+                                                    occupancy_map,
+                                                    voxel_alpha_positive)
+    from vkvolume_tpu_torch.bench.datasets import DATASETS, synthesize
+    from vkvolume_tpu_torch.bench.harness import benchmark_camera, make_engine
+    from vkvolume_tpu_torch.options import Test
+    from vkvolume_tpu_torch.render import plan as plan_mod
+    from vkvolume_tpu_torch.render import sweep_frame
+    from vkvolume_tpu_torch.render.ray_setup import (make_rays,
+                                                     transpose_for_axis)
+    from vkvolume_tpu_torch.tf.transfer_function import tf_params
+    from vkvolume_tpu_torch.utils.image import read_png
+    from vkvolume_tpu_torch.viewer import ViewerServer
+
+    res, launches = {}, {}
+    sweeps_and_warps = ("K1", "K1 texture", "K7", "K2", "K8")
+
+    def png_covered(png, shape, ph):
+        img = read_png(png)
+        assert img.shape == shape, img.shape
+        c = float((img.max(axis=-1) > 0).mean())
+        log(f"{ph}: PNG {img.shape} covered share {c:.4f}")
+        assert c >= MIN_COVERED, f"{ph}: PNG nearly empty ({c})"
+
+    # (a) bench.py's engine, its TF edited to an inverted intensity range
+    # with a gradient term: the float path's occupancy map, K3 + K4 x8,
+    # then bench.py's frame through K1 + K2.
+    ph = "phase 10a inverted TF"
+    beetle = synthesize(DATASETS["beetle"], seed=0)
+    eng = make_engine("beetle", 3, 4, volume_u8=beetle, test=Test.NONE,
+                      ert=True, device="cuda")[0]
+    v = eng.volumes[0]
+    monotone = eng._tf(v)
+    o = v.options
+    reset_launches()
+    (o.intensity_min, o.intensity_max, o.gradient_min,
+     o.gradient_max) = INVERTED_TF
+    st = eng.update_transfer_function(v)
+    cam = benchmark_camera(aspect=WIDTH / HEIGHT)
+    out = eng.render(cam, WIDTH, HEIGHT)
+    torch.cuda.synchronize()
+    launches["inverted TF"] = read_launches()
+    log(f"{ph}: TF {INVERTED_TF}: launches {launches['inverted TF']}")
+    tf = eng._tf(v)
+    assert _tf_thresholds(tf) is None, "the TF range is monotone"
+    assert eng.last_renderer == "pallas", eng.last_renderer
+    assert all(launches["inverted TF"][k] > 0 for k in ("K1", "K1 walk", "K2",
+                                                        "K3", "K4")), \
+        f"{ph}: a kernel of the path never ran"
+    shape = v.map_shape_zyx
+    occ_card = occupancy_map(v.density, v.gradient, tf, shape)
+    occ_cpu = occupancy_map(v.density.cpu(), v.gradient.cpu(), tf, shape)
+    assert torch.equal(occ_card.cpu(), occ_cpu), \
+        f"{ph}: the card's float-path map differs from the CPU's"
+    imin, imax, gmin, gmax = U8_EDGE_TF
+    edge_tf = tf_params(intensity_min=imin, intensity_max=imax,
+                        gradient_min=gmin, gradient_max=gmax)
+    assert _tf_thresholds(edge_tf) is None, "the TF range is monotone"
+    edge_card = voxel_alpha_positive(v.density, v.gradient, edge_tf).cpu()
+    edge_cpu = voxel_alpha_positive(v.density.cpu(), v.gradient.cpu(),
+                                    edge_tf)
+    n_flip = int((edge_card != edge_cpu).sum())
+    assert n_flip == 0, \
+        f"{ph}: TF {U8_EDGE_TF}: {n_flip} voxels differ on card and CPU"
+    assert torch.equal(occupancy_map(v.density, v.gradient, edge_tf,
+                                     shape).cpu(),
+                       occupancy_map(v.density.cpu(), v.gradient.cpu(),
+                                     edge_tf, shape)), \
+        f"{ph}: TF {U8_EDGE_TF}: the card's map differs from the CPU's"
+    on_edge = int((v.density == round(imin * 255)).sum())
+    # Every u8 (intensity, gradient) pair at every edge level where a
+    # fusion would flip, the intensity range inverted, the gradient range
+    # either way.
+    pair_v, pair_g = torch.meshgrid(torch.arange(256, dtype=torch.uint8),
+                                    torch.arange(256, dtype=torch.uint8),
+                                    indexing="ij")
+    n_tf = 0
+    for level in fma_edge_levels():
+        lo = level / 255.0
+        for g_max in (0.0, 0.999):
+            t = tf_params(intensity_min=lo, intensity_max=0.0,
+                          gradient_min=lo, gradient_max=g_max)
+            on_card = voxel_alpha_positive(pair_v.cuda(), pair_g.cuda(), t)
+            assert torch.equal(on_card.cpu(),
+                               voxel_alpha_positive(pair_v, pair_g, t)), \
+                f"{ph}: edge level {level}: the card's test differs"
+            n_tf += 1
+    log(f"{ph}: TF {U8_EDGE_TF} (edges on u8 levels; {on_edge} voxels at "
+        f"intensity {round(imin * 255)}): per-voxel alpha > 0 and the map "
+        f"equal on card and CPU ({int(edge_cpu.sum())} positive voxels); "
+        f"every u8 (intensity, gradient) pair equal on card and CPU at "
+        f"{n_tf} TFs, edges on each u8 level where a fused multiply-add "
+        f"flips")
+    del edge_card, edge_cpu
+    occ_plain, maps_plain = plain_maps(eng)
+    assert torch.equal(occ_plain, occ_card)
+    assert torch.equal(v.dist_maps, maps_plain), \
+        f"{ph}: maps differ from their plain versions"
+    n_occ = int((occ_card == 0).sum())
+    color = out.color
+    assert bool(torch.isfinite(color).all())
+    covered = float((color[..., 3] > 0).float().mean())
+    assert covered >= MIN_COVERED, f"{ph}: frame nearly empty ({covered})"
+    check_against_plain_frame(eng, cam, color, WIDTH, HEIGHT, ph)
+    # For a monotone TF the float path equals the integer path.
+    thr = _tf_thresholds(monotone)
+    general = _occupancy_general(v.density, None, monotone, shape)
+    integer = _occupancy_u8(v.density, None, shape, *thr)
+    assert torch.equal(general, integer), f"{ph}: float != integer path"
+    res["general_occ_ms"] = gpu_timer(
+        lambda: _occupancy_general(v.density, v.gradient, tf, shape), 5)
+    res["integer_occ_ms"] = gpu_timer(
+        lambda: _occupancy_u8(v.density, None, shape, *thr), 5)
+    res["inverted_map_update_ms"] = st.map_update_ms
+    res["inverted_frame_ms"] = statistics.median(
+        synced_ms(lambda: eng.render(cam, WIDTH, HEIGHT), MARCH_REPS))
+    log(f"{ph}: occupancy map {shape} equal on card and CPU and to the "
+        f"plain maps ({n_occ} occupied cells), 8 octant maps equal to "
+        f"their plain versions; frame covered share {covered:.4f}; "
+        f"map_update_ms {st.map_update_ms:.4f} (20 builds, benchmark mode),"
+        f" float-path occupancy {res['general_occ_ms']:.4f} ms vs the "
+        f"integer path's {res['integer_occ_ms']:.4f} (card, queued), frame "
+        f"{res['inverted_frame_ms']:.4f} ms (median of {MARCH_REPS} synced)")
+    del eng, out, color, occ_cpu
+    torch.cuda.empty_cache()
+
+    # (b) --gradient_test: gradients computed in the map build (K5 + the
+    # two-sided K4); the frame, without a gradient map, takes the XLA
+    # sweep.
+    ph = "phase 10b --gradient_test"
+    W, H = CLI_WIDTH, CLI_HEIGHT
+    png = os.path.join(out_dir, "cli_gradient_test.png")
+    reset_launches()
+    eng, _, out = cli.run(["--synth", "beetle", "--width", str(W),
+                           "--height", str(H), "--gradient_test",
+                           "--output", png])
+    torch.cuda.synchronize()
+    launches["--gradient_test"] = read_launches()
+    log(f"{ph}: launches {launches['--gradient_test']}")
+    v = eng.volumes[0]
+    assert v.gradient is None and eng.last_renderer == "sweep"
+    assert all(launches["--gradient_test"][k] > 0
+               for k in ("K5", "K4 two-sided"))
+    check_none(launches["--gradient_test"], sweeps_and_warps, ph)
+    assert torch.equal(v.dist_maps, plain_maps(eng)[1]), \
+        f"{ph}: maps differ from their plain versions"
+    png_covered(png, (H, W, 3), ph)
+    cam = cli.cli_camera(W, H)
+    res["on_the_fly_update_ms"] = statistics.median(synced_ms(
+        lambda: eng.update_transfer_function(v), MARCH_REPS))
+    res["gradient_test_frame_ms"] = statistics.median(synced_ms(
+        lambda: eng.render(cam, W, H), MARCH_REPS))
+    log(f"{ph}: TF edit with on-the-fly gradients "
+        f"{res['on_the_fly_update_ms']:.4f} ms, XLA-sweep frame "
+        f"{res['gradient_test_frame_ms']:.4f} ms (medians of {MARCH_REPS} "
+        f"synced)")
+    del eng, out
+    torch.cuda.empty_cache()
+
+    # (d) the accel cache: the CLI's engine saves its maps, a second engine
+    # restores them (no map build) and renders the same frame.
+    ph = "phase 10d accel cache"
+    cache_dir = os.path.join(out_dir, "accel_cache")
+    args = cli.build_parser().parse_args(["--synth", "beetle", "--width",
+                                          str(W), "--height", str(H)])
+    eng1, (v1,) = cli.setup_engine(args)
+    eng1.accel_cache_dir = cache_dir
+    t0 = time.perf_counter()
+    eng1.add_volume(v1)
+    torch.cuda.synchronize()
+    res["cache_build_save_s"] = time.perf_counter() - t0
+    eng, (v,) = cli.setup_engine(args)
+    eng.accel_cache_dir = cache_dir
+    reset_launches()
+    t0 = time.perf_counter()
+    stats = eng.add_volume(v)
+    torch.cuda.synchronize()
+    res["cache_restore_s"] = time.perf_counter() - t0
+    out = eng.render(cam, W, H)
+    torch.cuda.synchronize()
+    launches["cache restore"] = read_launches()
+    log(f"{ph}: launches {launches['cache restore']}")
+    assert stats.map_update_ms is None, f"{ph}: the maps were rebuilt"
+    check_none(launches["cache restore"], ("K3", "K4", "K4 two-sided", "K5"),
+               ph)
+    assert launches["cache restore"]["K1"] > 0
+    assert v.dist_maps.device.type == "cuda"
+    assert torch.equal(v.dist_maps, v1.dist_maps)
+    assert torch.equal(v.gradient, v1.gradient)
+    assert torch.equal(out.color, eng1.render(cam, W, H).color)
+    (name,) = os.listdir(cache_dir)
+    mb = os.path.getsize(os.path.join(cache_dir, name)) / 1e6
+    log(f"{ph}: build + save {res['cache_build_save_s']:.2f} s, restore "
+        f"{res['cache_restore_s']:.2f} s ({mb:.1f} MB file); maps, gradient "
+        f"and frame equal")
+    del eng1, v1
+    torch.cuda.empty_cache()
+
+    # (c) render_frame on the caller's rays: at the CLI pose (the host
+    # plan) against the engine's frame, and at a pose whose engine plan
+    # takes another axis than the host analysis, so that render_frame
+    # plans from the rays' device statistics; each against its plain frame.
+    ph = "phase 10c render_frame"
+    tf = eng._tf(v)
+    res["render_frame"] = {}
+    for az in (30.0, DEVICE_STATS_AZIMUTH):
+        cam = cli.cli_camera(W, H, azimuth=az)
+        ref = eng.render(cam, W, H)
+        pose = next(q for k, q in v._sweep_cache.items()
+                    if isinstance(k, tuple) and k[0] == "pose"
+                    and k[1][:2] == (cam.view.tobytes(), cam.proj.tobytes()))
+        u, p = pose["uniforms"], pose["view"]["p_axis"]
+        vol_t = v._sweep_cache[p]
+        occ_t = transpose_for_axis(v.dist_maps[0], p)
+        rays = make_rays(u, H, W, "cuda")
+        device_stats = plan_mod.analyze_view(u, H, W)["p_axis"] != p
+        t0 = time.perf_counter()
+        plan = sweep_frame.plan_frame(u, rays, p, tuple(vol_t.shape), H, W)
+        plan_ms = (time.perf_counter() - t0) * 1e3
+        assert plan is not None and device_stats == (
+            az == DEVICE_STATS_AZIMUTH), (az, p)
+        grad_t = transpose_for_axis(v.gradient, p)
+        kw = dict(p_axis=p, ert=eng.options.early_ray_termination,
+                  oversample=eng._slab_oversample(v, vol_t.shape, tf),
+                  dist_leap=True)
+
+        def frame():
+            return sweep_frame.render_frame(vol_t, occ_t, tf, rays, u,
+                                            eng._pvm(cam, v), grad_t, **kw)
+
+        reset_launches()
+        got = frame()
+        torch.cuda.synchronize()
+        key = f"render_frame azimuth {az:.0f}"
+        launches[key] = read_launches()
+        warp = ("two-pass" if plan["RECT_A"] else
+                "K8" if plan["R_warp"] else "gather")
+        log(f"{ph} azimuth {az:.0f}: "
+            f"{'device-stats' if device_stats else 'host'} plan "
+            f"Hi={plan['Hi']} Wi={plan['Wi']} R_brick={plan.get('R_brick')} "
+            f"warp={warp} ({plan_ms:.2f} ms); launches {launches[key]}")
+        sweep = "K1" if launches[key]["K1"] else "K7"
+        assert launches[key][sweep] > 0
+        if device_stats:
+            assert launches[key]["K2"] or launches[key]["K8"] \
+                or plan.get("warp_xla")
+        with plain_kernels():
+            want = frame()
+        diff = (got.color - want.color).abs().amax(-1)
+        bad = float((diff > FRAME_TOL).float().mean())
+        da = abs(float(got.color[..., 3].mean())
+                 - float(want.color[..., 3].mean()))
+        d_eng = (got.color - ref.color).abs().amax(-1)
+        same_plan = plan.keys() == pose["plan"].keys() and all(
+            np.array_equal(np.asarray(plan[k]), np.asarray(pose["plan"][k]))
+            for k in plan)
+        cross = float((d_eng > CROSS_TOL).float().mean())
+        cov = covered_share(got.color)
+        log(f"{ph} azimuth {az:.0f}: vs its plain frame max "
+            f"{float(diff.max()):.3g}, share > {FRAME_TOL}: {bad:.3g}, mean "
+            f"alpha diff {da:.3g}; vs the engine's frame (plan equal: "
+            f"{same_plan}) max {float(d_eng.max()):.3g}, share > "
+            f"{CROSS_TOL}: {cross:.3g}; covered share {cov:.4f}")
+        assert bad <= FRAME_BAD_SHARE and da <= FRAME_ALPHA_MEAN
+        assert cov >= MIN_COVERED
+        if same_plan:
+            assert torch.equal(got.color, ref.color)
+        elif not device_stats:
+            assert cross <= CROSS_BAD_SHARE
+        ms = statistics.median(synced_ms(frame, MARCH_REPS))
+        eng_ms = statistics.median(synced_ms(lambda: eng.render(cam, W, H),
+                                             MARCH_REPS))
+        stats_ms = statistics.median(synced_ms(
+            lambda: sweep_frame.stats_to_dict(
+                sweep_frame.plan_stats(rays, p)), MARCH_REPS))
+        res["render_frame"][az] = dict(ms=ms, engine_ms=eng_ms,
+                                       plan_ms=plan_ms, stats_ms=stats_ms,
+                                       device_stats=device_stats,
+                                       sweep=sweep)
+        log(f"{ph} azimuth {az:.0f}: render_frame {ms:.4f} ms, the "
+            f"engine's frame {eng_ms:.4f} ms, plan_stats + copy "
+            f"{stats_ms:.4f} ms (medians of {MARCH_REPS} synced)")
+    del eng, v, out, ref, got, want
+    torch.cuda.empty_cache()
+
+    # (e) the viewer on a free port, in a thread, on the CLI's engine.
+    ph = "phase 10e viewer"
+    eng, (v,) = cli.setup_engine(args)
+    eng.add_volume(v)
+    srv = ViewerServer(eng, v, VIEWER_WIDTH, VIEWER_HEIGHT, port=0)
+    thread = threading.Thread(target=srv.httpd.serve_forever, daemon=True)
+    thread.start()
+    reset_launches()
+    res["viewer"] = []
+    try:
+        def get(path):
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{srv.port}{path}", timeout=300) as r:
+                return r.read(), dict(r.headers)
+
+        page, hdrs = get("/")
+        assert b"imin" in page and "text/html" in hdrs["Content-Type"]
+        steps = (("frame", "azimuth=30&elevation=20", "pallas"),
+                 ("same TF", "azimuth=30&elevation=20", "pallas"),
+                 ("TF edit", "imin=0.15&azimuth=30&elevation=20", "pallas"),
+                 ("imin > imax", "imin=0.6&imax=0.1&azimuth=30&elevation=20",
+                  "pallas"),
+                 ("skipmode 3", "imin=0.6&imax=0.1&skipmode=3&azimuth=30"
+                  "&elevation=20", "pallas"),
+                 ("scene", "imin=0.6&imax=0.1&skipmode=3&scene=1&azimuth=30"
+                  "&elevation=20", "sweep"))
+        for name, query, route in steps:
+            reset_launches()
+            png, h = get("/frame.png?" + query)
+            torch.cuda.synchronize()
+            got = read_launches()
+            path = os.path.join(out_dir, "viewer.png")
+            with open(path, "wb") as f:
+                f.write(png)
+            assert png[:8] == b"\x89PNG\r\n\x1a\n"
+            assert read_png(path).shape == (VIEWER_HEIGHT, VIEWER_WIDTH, 3)
+            assert h["X-Renderer"] == route, (name, h["X-Renderer"])
+            upd, ren = float(h["X-Update-Ms"]), float(h["X-Render-Ms"])
+            assert (upd == 0.0) == (name in ("frame", "same TF", "scene"))
+            if route == "pallas":
+                assert got["K1"] + got["K7"] > 0
+            else:
+                check_none(got, sweeps_and_warps, f"{ph} {name}")
+            if name == "skipmode 3":
+                assert got["K3"] > 0 and got["K4"] > 0
+            res["viewer"].append((name, upd, ren, h["X-Renderer"]))
+            launches["viewer"] = {k: launches.get("viewer", {}).get(k, 0) + n
+                                  for k, n in got.items()}
+            log(f"{ph} {name}: X-Update-Ms {upd}, X-Render-Ms {ren}, "
+                f"X-Renderer {h['X-Renderer']}, X-Occupied-Pct "
+                f"{h['X-Occupied-Pct']}, PNG {len(png)} bytes; launches {got}")
+        body, _ = get("/stats")
+        assert json.loads(body)["frames"] == len(steps)
+    finally:
+        srv.shutdown()
+        thread.join(timeout=60)
+    assert not thread.is_alive()
+    del eng, v
+    torch.cuda.empty_cache()
+    return res, launches
+
+
 def main() -> int:
     import torch
 
@@ -1900,6 +2298,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as out_dir:
         oracle = phase_oracle(out_dir)
     log(f"phase 9: {time.perf_counter() - t9:.1f} s")
+    t10 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out_dir:
+        api, api_launches = phase_api(out_dir)
+    log(f"phase 10: {time.perf_counter() - t10:.1f} s")
     for more in (cli_rows, accel_rows, orbit_rows, tex_rows, matrix_rows):
         rows.update(more)
     assert "jax" not in sys.modules
@@ -1993,12 +2395,17 @@ def main() -> int:
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), library "
             f"{'none' if lib is None else f'{lib:.4f} ms'} (max abs err "
             f"{r['max_abs_err']:.3g}, launches {n})")
+        counter = next((c for c in ("K4 two-sided", "K1 texture", "K1 walk",
+                                    "K7 walk") if k == c), k.split()[0])
         kernels.append({"name": f"{k.split()[0]} {name}", "route": "cuda",
                         "source": source, "replaces": replaces,
                         "launches": n, "max_abs_err": r["max_abs_err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"],
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                        "library_ms": lib})
+                        "library_ms": lib,
+                        "launches_phase10": {
+                            path: counts[counter]
+                            for path, counts in api_launches.items()}})
     log(f"frame_ms_median {frame_ms:.4f} map_update_ms {map_ms:.4f} "
         f"({WIDTH}x{HEIGHT}, skipmode 3)")
     log(f"cli_frame_ms_median {cli_ms:.4f} cli_map_update_ms {cli_map_ms:.4f} "
@@ -2031,6 +2438,25 @@ def main() -> int:
         f"repair {r['frame_ms']:.4f}")
     log(f"scene: rasteriser {oracle['scene']['raster_ms']:.4f} ms, frame "
         f"{oracle['scene']['frame_ms']:.4f} ms")
+    log(f"inverted TF (float path): map_update_ms "
+        f"{api['inverted_map_update_ms']:.4f}, float-path occupancy "
+        f"{api['general_occ_ms']:.4f} ms vs integer "
+        f"{api['integer_occ_ms']:.4f}, frame {api['inverted_frame_ms']:.4f} "
+        f"ms ({WIDTH}x{HEIGHT})")
+    log(f"--gradient_test: TF edit {api['on_the_fly_update_ms']:.4f} ms, "
+        f"XLA-sweep frame {api['gradient_test_frame_ms']:.4f} ms "
+        f"({CLI_WIDTH}x{CLI_HEIGHT})")
+    for az, r in api["render_frame"].items():
+        log(f"render_frame azimuth {az:.0f} "
+            f"({'device-stats' if r['device_stats'] else 'host'} plan, "
+            f"{r['sweep']}): {r['ms']:.4f} ms, engine frame "
+            f"{r['engine_ms']:.4f} ms, plan {r['plan_ms']:.2f} ms, "
+            f"plan_stats {r['stats_ms']:.4f} ms")
+    log(f"accel cache: build + save {api['cache_build_save_s']:.2f} s, "
+        f"restore {api['cache_restore_s']:.2f} s")
+    for name, upd, ren, route in api["viewer"]:
+        log(f"viewer {name}: update {upd} ms, render {ren} ms ({route}, "
+            f"{VIEWER_WIDTH}x{VIEWER_HEIGHT})")
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -101,13 +101,6 @@ def test_png_is_the_composited_frame(frames):
     assert (img.max(-1) > 0).mean() > 0.05
 
 
-@pytest.mark.parametrize("flags,item", [(["--gradient_test"], "item 5")])
-def test_unported_flags_raise(flags, item):
-    args = tcli.build_parser().parse_args(["--device", "cpu"] + flags)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue A, {item}"):
-        tcli.setup_engine(args)
-
-
 # One row per skipmode is left to run; the rest of the matrix is already in
 # the CSVs, as after an interrupted sweep.
 TO_RUN = {0: ("present", 2), 1: ("beetle-grad", 3), 2: ("snake", 5),

@@ -150,8 +150,10 @@ def test_port_never_imports_jax():
             "vkvolume_tpu_torch.bench.profile_frame, "
             "vkvolume_tpu_torch.interop, vkvolume_tpu_torch.cli, "
             "vkvolume_tpu_torch.io, vkvolume_tpu_torch.io.native, "
-            "vkvolume_tpu_torch.utils.image; "
+            "vkvolume_tpu_torch.utils.image, vkvolume_tpu_torch.viewer, "
+            "vkvolume_tpu_torch.engine.accel_cache; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
+            "assert 'PIL' not in sys.modules, 'PIL imported'; "
             "assert not any(m.startswith('vkvolume_tpu.') or m == "
             "'vkvolume_tpu' for m in sys.modules)")
     subprocess.run([sys.executable, "-c", code], check=True)

@@ -161,7 +161,8 @@ def test_tf_params_and_thresholds_match(imin, imax, gmin, gmax):
                                       else float(np.asarray(getattr(j,
                                                                     f.name))))
     tf_host = (imin, imax, gmin, gmax)
-    assert tocc._tf_thresholds(tf_host) == jocc._tf_thresholds(j, tf_host)
+    assert tocc._tf_thresholds(t, tf_host) == jocc._tf_thresholds(j, tf_host)
+    assert tocc._tf_thresholds(t) == jocc._tf_thresholds(j)
 
 
 @pytest.fixture(scope="module")
@@ -183,7 +184,7 @@ def test_occupancy_and_count_match(beetle, gradient):
     tg = tgrad.gradient_map(torch.from_numpy(beetle), 1.0, use_gradient=True)
     np.testing.assert_array_equal(tg.numpy(), np.asarray(jg))
     maps_shape = tuple(-(-s // 4) for s in beetle.shape)
-    ti, tgt = tocc._tf_thresholds(tf_host)
+    ti, tgt = tocc._tf_thresholds(tt, tf_host)
     want = np.asarray(jocc._occupancy_u8(jnp.asarray(beetle),
                                          jg if gradient else None,
                                          maps_shape, ti, tgt))
@@ -192,7 +193,7 @@ def test_occupancy_and_count_match(beetle, gradient):
     np.testing.assert_array_equal(got.numpy(), want)
     assert (want == 0).any() and (want == 255).any()
     assert tocc.occupied_voxel_count(torch.from_numpy(beetle), tg, tt,
-                                     tf_host) == \
+                                     tf_host=tf_host) == \
         jocc.occupied_voxel_count(jnp.asarray(beetle), jg, jt,
                                   tf_host=tf_host)
 

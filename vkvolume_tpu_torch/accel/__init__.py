@@ -13,7 +13,9 @@ from .occupancy import (
     OCCUPIED,
     effective_block_size,
     map_extent,
+    occupancy_map,
     occupied_voxel_count,
+    voxel_alpha_positive,
 )
 
 __all__ = [
@@ -30,5 +32,7 @@ __all__ = [
     "OCCUPIED",
     "effective_block_size",
     "map_extent",
+    "occupancy_map",
     "occupied_voxel_count",
+    "voxel_alpha_positive",
 ]

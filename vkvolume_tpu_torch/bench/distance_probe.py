@@ -95,8 +95,8 @@ def occupancy(volume, use_gradient: bool) -> torch.Tensor:
     from ..accel.occupancy import _occupancy_u8, _tf_thresholds
 
     o = volume.options
-    ti, tg = _tf_thresholds((o.intensity_min, o.intensity_max,
-                             o.gradient_min, o.gradient_max))
+    ti, tg = _tf_thresholds(None, (o.intensity_min, o.intensity_max,
+                                   o.gradient_min, o.gradient_max))
     return _occupancy_u8(volume.density,
                          volume.gradient if use_gradient else None,
                          volume.map_shape_zyx, ti, tg)

@@ -26,8 +26,10 @@ at ``--synth-scale``) on ``--device`` and writes
 ``--edge-repair`` re-marches the frame's resampling-suspect pixels with
 it, and ``--scene`` renders the demo hall mesh (``render/forward.py``),
 clips the volume's rays at its depth and composites the volume over it.
-Not ported yet: ``--gradient_test`` (it raises NotImplementedError naming
-ROADMAP queue A, item 5).
+``--gradient_test`` computes the gradients inside every map build and in
+the marcher instead of reading a precomputed map; without the map, the
+gradient-TF frames of ``--renderer pallas`` take the XLA sweep (gradient
+1.0), as in the JAX package.
 ``--debug-nans`` is accepted and does nothing: it switches on a JAX NaN
 trap that PyTorch's eager execution has no counterpart for.
 """
@@ -63,8 +65,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="0=None 1=Block 2=Distance 3=AnisotropicDistance")
     p.add_argument("--blocksize", type=int, default=4)
     p.add_argument("--gradient_test", action="store_true",
-                   help="on-the-fly gradients instead of the precomputed map "
-                        "(not ported)")
+                   help="on-the-fly gradients instead of the precomputed map")
     p.add_argument("--width", type=int, default=1280)
     p.add_argument("--height", type=int, default=720)
     p.add_argument("--benchmark", type=int, default=0, metavar="FRAMES",
@@ -120,11 +121,6 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _refuse_unported(args) -> None:
-    if args.gradient_test:
-        raise NotImplementedError("--gradient_test: ROADMAP queue A, item 5")
-
-
 def setup_engine(args):
     """Engine + volume list from parsed CLI args.
 
@@ -136,7 +132,6 @@ def setup_engine(args):
     from .engine.volume import resolve_device
     from .options import SkippingType, Test, VolumeOptions
 
-    _refuse_unported(args)
     device = resolve_device(args.device)
     opts = VolumeOptions(
         sampling_factor=args.sampling,

@@ -4,7 +4,8 @@ its acceleration maps are tensors on the volume's device, the transforms
 are host numpy, and so is the baked TF texture (``tf_texture``, rebaked on
 every TF edit), whose device copy ``texture_on_device`` caches per bake.
 ``from_file`` loads a raw volume with its ``.header``
-sidecar (``io/``); ``set_spin`` is the reference's spin animation.
+sidecar (``io/``); ``set_spin`` is the reference's spin animation and
+``get_translation`` / ``set_translation`` its per-volume XYZ drag.
 """
 
 from __future__ import annotations
@@ -82,6 +83,26 @@ class Volume:
         """Node scale (src/volume_render.cpp:233-237)."""
         self.node_transform = math3d.scale(scale_xyz)
         self._spin_base = None
+
+    def get_translation(self) -> np.ndarray:
+        """The node's translation (the reference GUI reads it back for the
+        per-volume XYZ drag, src/volume_render.cpp:464)."""
+        return np.asarray(self.node_transform, np.float64)[:3, 3].copy()
+
+    def set_translation(self, xyz) -> None:
+        """Replace the node's translation, keeping its rotation and scale
+        (src/volume_render.cpp:464-468), and retarget the captured spin
+        base, so that a spinning volume keeps turning about its new
+        position."""
+        t = np.asarray(xyz, np.float64)
+        m = np.asarray(self.node_transform, np.float64).copy()
+        m[:3, 3] = t
+        self.node_transform = m.astype(np.float32)
+        base = getattr(self, "_spin_base", None)
+        if base is not None:
+            base = np.asarray(base, np.float64).copy()
+            base[:3, 3] = t
+            self._spin_base = base
 
     def set_spin(self, angle_rad: float, axis=(0.0, 1.0, 0.0)) -> None:
         """Node rotation by an absolute angle over the node's spin-free

@@ -1,3 +1,5 @@
+from . import sampling
+from .marcher import march
 from .ray_setup import (FrameUniforms, RaySetup, RenderOutput, make_rays,
                         make_uniforms, transpose_for_axis)
 
@@ -7,5 +9,7 @@ __all__ = [
     "RenderOutput",
     "make_rays",
     "make_uniforms",
+    "march",
+    "sampling",
     "transpose_for_axis",
 ]

@@ -25,11 +25,23 @@ The closed-form intensity or gradient TF and the
 through every route; the texture TF only through the brick sweep, as in
 the JAX package (the engine sends a texture frame K1 cannot take to the
 XLA sweep, ``render/sweep.py``).
+
+For callers with their own pixel rays, as in the JAX package:
+``render_frame`` (the w-grid frame, planned by ``plan_frame``, which
+falls back to device statistics of the rays, ``plan_stats``, when the
+host analysis has no view or picks another axis) and ``sweep_pallas``
+(the per-slab sweep K7 over the pixel rays themselves). Both raise
+``PallasUnsupported`` for views the kernels cannot take. Left out: the
+TPU kernels' rect heights and window widths, which the CUDA kernels do not
+have (``supports`` keeps the JAX feasibility test, so callers fall back on
+the same views), and the frozen-tier plan selection.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
+import warnings
 
 import numpy as np
 import torch
@@ -40,8 +52,179 @@ from . import sweep_bricks, sweep_slabs, warp_cuda
 from .ray_setup import (_SLICE_AXES, FrameUniforms, RaySetup, RenderOutput,
                         make_rays, rays_from_dirs)
 
+TILE_H = 8
 TILE_W = 128
+RECT_W = 256           # the per-slab TPU kernel's lane window
 _WARP_RECT_W = 640     # the single-pass warp's rect (warp_pallas.RECT_W)
+
+
+class PallasUnsupported(ValueError):
+    """The view or volume lies outside what the w-grid kernels take; the
+    caller falls back to the XLA sweep."""
+
+
+def supports(rays: RaySetup, uniforms: FrameUniforms, vol_t_shape,
+             height: int, width: int, p_axis: int, R: int = 16) -> bool:
+    """Host feasibility test of the JAX per-slab kernel: every 8×128 pixel
+    tile's source footprint fits a (R-1)×254 texel window for every slab
+    in [0, 1]."""
+    Np, Sv, Su = vol_t_shape
+    if height % TILE_H or width % TILE_W:
+        return False
+    if Np < 2 or Sv < 2 or Su < 2:
+        return False
+
+    v_ax, u_ax = _SLICE_AXES[p_axis]
+    d = rays.ray_dir.cpu().numpy()
+    valid = rays.valid.cpu().numpy()
+    if not valid.any():
+        return True
+    d_p = d[..., p_axis]
+    ok = np.abs(d_p) > 1e-6
+    safe = np.where(ok, d_p, 1.0)
+    wu = np.where(valid & ok, d[..., u_ax] / safe, np.nan)
+    wv = np.where(valid & ok, d[..., v_ax] / safe, np.nan)
+    o_p = float(np.asarray(uniforms.cam_pos_tex)[p_axis])
+    t_max = max(abs(0.0 - o_p), abs(1.0 - o_p))
+
+    def tile_span(w, th, tw):
+        a = w.reshape(height // th, th, width // tw, tw)
+        a = np.transpose(a, (0, 2, 1, 3)).reshape(-1, th * tw)
+        with np.errstate(invalid="ignore"), warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            span = np.nanmax(a, axis=1) - np.nanmin(a, axis=1)
+        return np.nanmax(np.where(np.isnan(span), 0.0, span))
+
+    # The 128-aligned rect base can waste up to 127 leading texels, the
+    # 8-aligned base up to 7 rows; the tent filter needs one extra row.
+    span_u = tile_span(wu, TILE_H, TILE_W) * t_max * Su
+    span_v = tile_span(wv, TILE_H, TILE_W) * t_max * Sv
+    return bool(span_u <= RECT_W - 132 and span_v <= R - 10)
+
+
+def sweep_pallas(vol_t: torch.Tensor, occupancy_t: torch.Tensor | None, tf,
+                 rays: RaySetup, uniforms: FrameUniforms, proj_view_model,
+                 grad_t: torch.Tensor | None = None, *, p_axis: int,
+                 ert: bool = True, test: Test = Test.NONE,
+                 count_samples: bool = False, oversample: float = 1.0,
+                 dist_leap: bool = False) -> RenderOutput:
+    """The per-slab sweep (K7) over the caller's pixel rays. ``vol_t`` /
+    ``occupancy_t`` are transposed for ``p_axis``; ``occupancy_t`` None
+    samples every slab, a Chebyshev distance map with ``dist_leap``.
+    Raises PallasUnsupported where the JAX entry does: a view whose tile
+    footprints fit no rect height of the TPU kernel (the CUDA kernel has
+    no such window; the test keeps the fallbacks the same), or a volume
+    thinner than two planes. Entry / exit ``Test`` frames are the
+    caller's."""
+    H, W = rays.valid.shape
+    # The JAX entry tries rect heights 16, 24, 32 and 48; the test passes
+    # for one of them exactly when it passes for the tallest.
+    if not supports(rays, uniforms, vol_t.shape, H, W, p_axis, R=48):
+        raise PallasUnsupported(
+            f"vol_t shape {tuple(vol_t.shape)} image {H}x{W} violates "
+            "kernel limits")
+    n_slabs = int(max(2, round(vol_t.shape[0] * oversample)))
+    if occupancy_t is None:
+        occupancy_t = torch.zeros((1, 1, 1), dtype=torch.uint8,
+                                  device=vol_t.device)
+        dist_leap = False
+    if rays.entry is None or rays.exit is None:
+        rays = dataclasses.replace(rays_from_dirs(uniforms, rays.ray_dir),
+                                   valid=rays.valid,
+                                   depth_init=rays.depth_init)
+    return sweep_slabs.sweep_slabs(
+        vol_t, occupancy_t, tf, rays, uniforms, proj_view_model, grad_t,
+        p_axis=p_axis, ert=ert, test=test, count_samples=count_samples,
+        n_slabs=n_slabs, separable=False, dist_leap=dist_leap)
+
+
+def principal_axis_from_uniforms(uniforms: FrameUniforms) -> int:
+    """Dominant view-direction axis of the central ray (host numpy)."""
+    vpi = np.asarray(uniforms.view_proj_inv, np.float64)
+    g2t = np.asarray(uniforms.global_to_tex, np.float64)
+    o = np.asarray(uniforms.cam_pos_tex, np.float64)
+    world = vpi @ np.array([0.0, 0.0, 0.0, 1.0])
+    world = world[:3] / world[3]
+    pt = (g2t @ np.append(world, 1.0))[:3]
+    return int(np.argmax(np.abs(pt - o)))
+
+
+def _count_valid(x: torch.Tensor) -> torch.Tensor:
+    return (~torch.isnan(x)).sum()
+
+
+def _nanmin(x: torch.Tensor) -> torch.Tensor:
+    m = torch.where(torch.isnan(x), float("inf"), x).amin()
+    return torch.where(_count_valid(x) > 0, m, float("nan"))
+
+
+def _nanmax(x: torch.Tensor) -> torch.Tensor:
+    m = torch.where(torch.isnan(x), float("-inf"), x).amax()
+    return torch.where(_count_valid(x) > 0, m, float("nan"))
+
+
+def _nanmedian(x: torch.Tensor) -> torch.Tensor:
+    """numpy's and JAX's nanmedian: the mean of the two middle values of an
+    even count (``torch.nanmedian`` takes the lower one), with no host
+    sync. Sorting puts NaN last."""
+    x = x.reshape(-1)
+    s = torch.sort(x).values
+    n = _count_valid(x)
+    lo = ((n - 1) // 2).clamp(min=0)
+    hi = (n // 2).clamp(min=0)
+    return (s[lo] + s[hi]) * 0.5
+
+
+def plan_stats(rays: RaySetup, p_axis: int) -> torch.Tensor:
+    """The view statistics of the device-stats plan, from the pixel rays on
+    their device: a (10,) float32 tensor (``stats_to_dict``'s keys), the
+    reductions of the JAX ``_plan_stats_jit``. The medians use a stride-8
+    subsample, as there."""
+    nan = float("nan")
+    v_ax, u_ax = _SLICE_AXES[p_axis]
+    d = rays.ray_dir
+    d_p = d[..., p_axis]
+    ok = d_p.abs() > 1e-6
+    sel = rays.valid & ok
+    safe = torch.where(ok, d_p, 1.0)
+    wu = torch.where(sel, d[..., u_ax] / safe, nan)
+    wv = torch.where(sel, d[..., v_ax] / safe, nan)
+    H, W = d_p.shape
+
+    def tile_span_max(a):
+        t = a.reshape(H // TILE_H, TILE_H, W // TILE_W, TILE_W)
+        t = t.permute(0, 2, 1, 3).reshape(-1, TILE_H * TILE_W)
+        n = (~torch.isnan(t)).sum(1)
+        hi = torch.where(torch.isnan(t), float("-inf"), t).amax(1)
+        lo = torch.where(torch.isnan(t), float("inf"), t).amin(1)
+        sp = torch.where(n > 0, hi - lo, 0.0)
+        return _nanmax(sp)
+
+    du = torch.fmax((wu[:, 1:] - wu[:, :-1]).abs()[:-1, :],
+                    (wu[1:, :] - wu[:-1, :]).abs()[:, :-1])
+    dv = torch.fmax((wv[:, 1:] - wv[:, :-1]).abs()[:-1, :],
+                    (wv[1:, :] - wv[:-1, :]).abs()[:, :-1])
+    du_s, dv_s = du[::8, ::8], dv[::8, ::8]
+    dp_s, sel_s = d_p[::8, ::8], sel[::8, ::8]
+    return torch.stack([
+        sel.any().to(torch.float32),
+        _nanmin(wu), _nanmax(wu), _nanmin(wv), _nanmax(wv),
+        _nanmedian(torch.where(du_s > 0, du_s, nan)),
+        _nanmedian(torch.where(dv_s > 0, dv_s, nan)),
+        tile_span_max(wu), tile_span_max(wv),
+        _nanmedian(torch.where(sel_s, dp_s, nan)),
+    ])
+
+
+_STAT_KEYS = ("any_sel", "wu_lo", "wu_hi", "wv_lo", "wv_hi", "du_q", "dv_q",
+              "span_wu", "span_wv", "sgn")
+
+
+def stats_to_dict(stats_vec) -> dict:
+    """``plan_stats``' vector as the planner's dict: one device-to-host
+    copy."""
+    vals = stats_vec.cpu().numpy().astype(np.float64)
+    return dict(zip(_STAT_KEYS, vals.tolist()))
 
 
 def select_view_plan(uniforms: FrameUniforms, height: int, width: int,
@@ -105,6 +288,25 @@ def select_view_plan(uniforms: FrameUniforms, height: int, width: int,
     if best is None:
         return view0, None
     return best
+
+
+def plan_frame(uniforms: FrameUniforms, rays: RaySetup, p_axis: int,
+               vol_shape_t, height: int, width: int,
+               max_oversample: float = 2.5, max_rect: int = 512):
+    """The frame plan of the caller's axis (``plan_from_stats``): from the
+    host analysis when it picks ``p_axis``, else from the device statistics
+    of ``rays`` (``plan_stats``). None for views whose rays disagree on the
+    principal axis's sign (the device statistics cannot see that) and for
+    views no plan fits."""
+    view = plan_mod.analyze_view(uniforms, height, width)
+    if view is not None and view["mixed"]:
+        return None
+    if view is not None and view["p_axis"] == p_axis:
+        return plan_from_stats(view, uniforms, p_axis, vol_shape_t, height,
+                               width, max_oversample, max_rect=max_rect)
+    st = stats_to_dict(plan_stats(rays, p_axis))
+    return plan_from_stats(st, uniforms, p_axis, vol_shape_t, height, width,
+                           max_oversample, max_rect=max_rect)
 
 
 def _mobius_grid_params(rng: float, f_lo: float, f_hi: float, N: float):
@@ -519,7 +721,8 @@ def _frame_body(vol_t: torch.Tensor, occupancy_t: torch.Tensor, tf,
                 width: int, warp_variant: str = "A", rect_w: int = 256,
                 grad_t: torch.Tensor | None = None,
                 test: Test = Test.NONE,
-                texture_tf: bool = False, return_chans: bool = False):
+                texture_tf: bool = False, return_chans: bool = False,
+                rays: RaySetup | None = None):
     """One frame: pixel rays → w-grid fields → sweep (K1, or K7) → channel
     stack → warp (K2 twice, K8, or the gather warp) → pixel outputs.
     ``packed`` is pack_frame_scalars' array; ``grad_t`` the gradient map
@@ -527,10 +730,12 @@ def _frame_body(vol_t: torch.Tensor, occupancy_t: torch.Tensor, tf,
     through the baked texture (K1 only). ``return_chans``: stop before the
     pixel stage and return its inputs (channel stack, pixel rays, sweep
     iterations), as the JAX frame's ``return_chans`` does for
-    ``stage_breakdown``."""
+    ``stage_breakdown``. ``rays``: the pixel rays of the warp (the
+    caller's, ``render_frame``), by default this pose's (``make_rays``)."""
     uniforms, pvm, gp, hcoef = unpack_frame_scalars(packed)
     dev = vol_t.device
-    rays = make_rays(uniforms, height, width, dev)
+    if rays is None:
+        rays = make_rays(uniforms, height, width, dev)
     wu_g, wv_g = w_grid(gp, Hi, Wi, dev)
     sgn = 1 if sgn_p > 0 else -1
     num_test = test == Test.NUM_TEXTURE_SAMPLES
@@ -551,11 +756,11 @@ def _frame_body(vol_t: torch.Tensor, occupancy_t: torch.Tensor, tf,
         if rect_w > 256:
             # The grid was sized for a wide brick rect; the per-slab
             # sweep's footprint limits assume 256 lanes.
-            raise ValueError("a wide-rect plan needs the brick sweep")
+            raise PallasUnsupported("a wide-rect plan needs the brick sweep")
         if texture_tf:
             # Only the brick sweep has the texture-TF variant; the engine
             # sends texture frames here only when its plan takes K1.
-            raise ValueError("the texture TF needs the brick sweep")
+            raise PallasUnsupported("the texture TF needs the brick sweep")
         grid_out = sweep_slabs.sweep_slabs(
             vol_t, occupancy_t, tf,
             grid_rays(uniforms, wu_g, wv_g, p_axis, sgn_p), uniforms, pvm,
@@ -572,3 +777,41 @@ def _frame_body(vol_t: torch.Tensor, occupancy_t: torch.Tensor, tf,
                         warp_variant=warp_variant,
                         iterations=grid_out.iterations, test=test,
                         dim_max=max(vol_t.shape))
+
+
+def render_frame(vol_t: torch.Tensor, occupancy_t: torch.Tensor | None, tf,
+                 rays: RaySetup, uniforms: FrameUniforms, proj_view_model,
+                 grad_t: torch.Tensor | None = None, *, p_axis: int,
+                 ert: bool = True, test: Test = Test.NONE,
+                 oversample: float = 1.0, dist_leap: bool = False,
+                 texture_tf: bool = False) -> RenderOutput:
+    """The w-grid frame for the caller's pixel rays (an H×W ``RaySetup``
+    with at least ``ray_dir``, ``valid`` and ``depth_init``): the plan
+    (``plan_frame``), then the sweep and the warp as ``_frame_body`` runs
+    them for the engine. ``vol_t`` / ``occupancy_t`` / ``grad_t`` are
+    transposed for ``p_axis``; ``occupancy_t`` None samples every slab, a
+    Chebyshev distance map with ``dist_leap``. Raises PallasUnsupported
+    for images that do not tile by 8×128 and views no plan fits."""
+    H, W = rays.valid.shape
+    if H % TILE_H or W % TILE_W:
+        raise PallasUnsupported(f"image {H}x{W} not tile-aligned")
+    plan = plan_frame(uniforms, rays, p_axis, tuple(vol_t.shape), H, W)
+    if plan is None:
+        raise PallasUnsupported("view exceeds w-grid kernel limits")
+    if occupancy_t is None:
+        occupancy_t = torch.zeros((1, 1, 1), dtype=torch.uint8,
+                                  device=vol_t.device)
+        dist_leap = False
+    gp = [plan["wu0"], plan["dwu"], plan.get("cu", 0.0),
+          plan["wv0"], plan["dwv"], plan.get("cv", 0.0)]
+    packed = pack_frame_scalars(uniforms, proj_view_model, gp,
+                                plan.get("hcoef"))
+    return _frame_body(
+        vol_t, occupancy_t, tf, packed, p_axis=p_axis, Hi=plan["Hi"],
+        Wi=plan["Wi"], R_warp=plan["R_warp"], ert=ert,
+        n_slabs=int(max(2, round(vol_t.shape[0] * oversample))),
+        sgn_p=plan["sgn_p"], dist_leap=dist_leap, RECT_A=plan["RECT_A"],
+        tile_h=plan.get("tile_h", 8), R_brick=plan.get("R_brick"),
+        height=H, width=W, warp_variant=plan.get("warp_variant", "A"),
+        rect_w=plan.get("rect_w", 256), grad_t=grad_t, test=test,
+        texture_tf=texture_tf, rays=rays)

@@ -34,9 +34,9 @@ def _chunk(kind: bytes, data: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
 
 
-def write_png(path: str, rgb_or_rgba: np.ndarray) -> None:
-    """Write an (H, W, 3) u8 image, or float rgb / premultiplied rgba
-    (composited over black and rounded to u8), as an 8-bit RGB PNG."""
+def encode_png(rgb_or_rgba: np.ndarray) -> bytes:
+    """An (H, W, 3) u8 image, or float rgb / premultiplied rgba (composited
+    over black and rounded to u8), as the bytes of an 8-bit RGB PNG."""
     arr = np.asarray(rgb_or_rgba)
     if arr.dtype != np.uint8:
         if arr.ndim == 3 and arr.shape[-1] == 4:
@@ -48,11 +48,17 @@ def write_png(path: str, rgb_or_rgba: np.ndarray) -> None:
     h, w, _ = arr.shape
     rows = np.concatenate([np.zeros((h, 1), np.uint8),       # filter: none
                            np.ascontiguousarray(arr).reshape(h, 3 * w)], 1)
+    return (_PNG_SIG
+            + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+            + _chunk(b"IEND", b""))
+
+
+def write_png(path: str, rgb_or_rgba: np.ndarray) -> None:
+    """Write ``encode_png(rgb_or_rgba)`` to ``path``."""
+    data = encode_png(rgb_or_rgba)
     with open(path, "wb") as f:
-        f.write(_PNG_SIG)
-        f.write(_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)))
-        f.write(_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)))
-        f.write(_chunk(b"IEND", b""))
+        f.write(data)
 
 
 def read_png(path: str) -> np.ndarray:
