@@ -116,6 +116,33 @@ full-scale synthetic stag beetle (494x832x832 u8) into bench.py's engine
          clips the rays and the XLA sweep renders the volume (no K1, K7,
          K2 or K8); no volume hit lies behind the scene; the rasteriser
          and the whole frame timed;
+ 10. the API paths (``phase_api``): the float occupancy path,
+     ``--gradient_test``, ``render_frame`` on caller rays, the map cache
+     and the viewer, with the counters at 0 before each;
+ 11. the multi-device modes (``vkvolume_tpu_torch.parallel``) on the CLI's
+     engine, built here and handed to the ranks (CUDA tensors through
+     CUDA IPC, the volume-sharded modes' arrays as host files), 4 ranks
+     sharing the card under gloo and one rank under NCCL, the counters
+     at 0 before each case on every rank:
+     (a) ``render_frame_sharded`` at the CLI pose, n = 2 at 1280x720 and
+         n = 4 at 1280x1024, each with its planner's warp variant and the
+         other one, and n = 1 under NCCL: K1 (or K7) and K2 on every rank,
+         lum, alpha and depth equal to the single-device ``render_frame``
+         of the same plan where both take the same sweep (else within
+         FRAME_TOL); n = 4 at 1280x720 raises ValueError on every rank;
+     (b) ``march_sharded`` (``--renderer marcher``'s march), n = 4: the
+         sample counters equal to the single-device march on every pixel,
+         colour within 1e-5, no sweep or warp launch;
+     (c) ``march_volume_sharded``, n = 4: within tests/test_parallel.py's
+         tolerances of the single-device march, each rank's volume and
+         gradient slabs at most (Pz + 4)/D of the volume;
+     (d) ``sweep_volume_sharded``, n = 4, ERT off and on: K1 on every
+         rank, within 2e-3 (0.011 with ERT) of the single-device brick
+         sweep of the same plan, depth on hit pixels within 1e-3, hit sets
+         agreeing on 99.5 %, each rank holding only its slab;
+     each case's ms (median of 3 synced calls of all its ranks) and its
+     collective's bytes and ms: n ranks time-sharing one card, not a
+     scaling result;
   7. prints the kernel table (each kernel's time, its plain version's,
      the least time the card could take for the same work, and a PyTorch
      call's where one computes the same function; a kernel's time is the
@@ -2251,6 +2278,460 @@ def phase_api(out_dir):
     return res, launches
 
 
+# ---------------------------------------------------------------- phase 11
+# The multi-device modes (vkvolume_tpu_torch/parallel) with MULTI_RANKS
+# ranks time-sharing the one card under gloo (NCCL refuses two ranks on one
+# device; gloo stages each collective through host memory), and one rank
+# under NCCL. Every rank reports its launch counters and timings; rank 0
+# returns the outputs, which this process holds against the single-device
+# paths on the same inputs.
+MULTI_RANKS = 4
+MULTI_REPS = 3          # synced calls timed per case (median)
+MULTI_DEADLINE_S = 600.0
+MULTI_TALL = 1024       # 1280x1024 splits into 8-row tiles over 4 ranks
+# tests/test_parallel.py's tolerances: march_sharded's colour;
+# march_volume_sharded's max colour, mean alpha and depth against the
+# single-device march; sweep_volume_sharded's colour without and with ERT
+# (the cross-slab tail), depth on hit pixels and the hit sets' agreement.
+MARCH_SHARDED_TOL = 1e-5
+VOL_MARCH_TOL = (0.06, 2e-3, 2e-2)
+VOL_SWEEP_TOL = {False: 2e-3, True: 0.011}
+VOL_SWEEP_DEPTH_TOL, VOL_SWEEP_HIT_SHARE = 1e-3, 0.995
+BRICK_HALO = 9          # sweep_volume_sharded's halo planes (BRICK + 1)
+
+
+def rank_ms(mesh, fn) -> float:
+    """Median host ms of MULTI_REPS calls of ``fn`` on every rank of
+    ``mesh`` together: each starts after a barrier and ends when the last
+    rank's card has finished."""
+    import torch
+    import torch.distributed as dist
+
+    ts = []
+    for _ in range(MULTI_REPS):
+        torch.cuda.synchronize()
+        dist.barrier(group=mesh.group)
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        dist.barrier(group=mesh.group)
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ts)
+
+
+def gather_ms(mesh, shapes, dim: int) -> tuple:
+    """(bytes every rank receives, median ms) of one all-gather of a
+    tensor of each (shape, dtype) in ``shapes`` along ``dim``, the
+    collective a mode runs."""
+    import torch
+
+    parts = [torch.zeros(s, dtype=d, device=mesh.device) for s, d in shapes]
+    nbytes = sum(t.nbytes for t in parts) * mesh.size
+    return nbytes, rank_ms(mesh, lambda: [mesh.all_gather(t, dim)
+                                          for t in parts])
+
+
+def multi_rank(mesh, job):
+    """Phase 11 on one rank: the cases of ``job`` in order, each driven
+    once with the launch counters at 0 just before it and read just after,
+    then timed. Returns per case the counters, ms, the collective's bytes
+    and ms, the volume bytes the rank put on its device, and on mesh rank
+    0 the outputs (numpy)."""
+    import numpy as np
+    import torch
+    from vkvolume_tpu_torch import parallel
+    from vkvolume_tpu_torch.options import SkippingType
+    from vkvolume_tpu_torch.parallel import mesh as mesh_mod
+
+    meshes = {mesh.size: mesh}
+    if job.get("sub"):
+        # Every rank of the world creates the sub-mesh; the others get None.
+        meshes[job["sub"]] = parallel.make_mesh(job["sub"],
+                                                device=str(mesh.device))
+    slab_bytes = []
+    take = mesh_mod._take_planes
+
+    def counted_take(a, idx, device):
+        t = take(a, idx, device)
+        slab_bytes.append((t.nbytes, np.asarray(a[:1]).nbytes * a.shape[0]))
+        return t
+
+    mesh_mod._take_planes = counted_take
+    host = {k: np.load(path, mmap_mode="r")
+            for k, path in job["host"].items()}
+    res = {"rank": mesh.rank, "backend": mesh.backend,
+           "device": str(mesh.device)}
+    for name, c in job["cases"].items():
+        m = meshes[c["n"]]
+        if m is None:
+            continue
+        kind = c["kind"]
+        march_kw = dict(skipping_type=SkippingType.DISTANCE,
+                        early_ray_termination=True,
+                        precomputed_gradient=True, count_samples=True)
+        if kind == "frame":
+            def fn():
+                return parallel.render_frame_sharded(
+                    m, c["vol_t"], c["occ_t"], c["tf"], c["rays"], c["u"],
+                    c["pvm"], c["grad_t"], p_axis=c["p"], ert=True,
+                    oversample=c["oversample"], dist_leap=True,
+                    plan=c.get("plan"))
+        elif kind == "frame_error":
+            try:
+                parallel.render_frame_sharded(
+                    m, c["vol_t"], c["occ_t"], c["tf"], c["rays"], c["u"],
+                    c["pvm"], c["grad_t"], p_axis=c["p"], ert=True,
+                    oversample=c["oversample"], dist_leap=True)
+            except ValueError as e:
+                res[name] = {"error": str(e)}
+                continue
+            raise AssertionError(f"{name}: no ValueError")
+        elif kind == "march":
+            def fn():
+                return parallel.march_sharded(
+                    m, c["density"], c["gradient"], c["maps"], c["tf"],
+                    c["rays"], c["bs"], c["pvm"], **march_kw)
+        elif kind == "march_volume":
+            def fn():
+                return parallel.march_volume_sharded(
+                    m, host["density"], host["gradient"], c["maps"],
+                    c["tf"], c["rays"], c["bs"], c["pvm"], **march_kw)
+        else:
+            def fn():
+                return parallel.sweep_volume_sharded(
+                    m, host["vol_t"], host["occ_t"], c["tf"], c["u"],
+                    c["pvm"], host["grad_t"], p_axis=c["p"],
+                    height=c["height"], width=c["width"], ert=c["ert"],
+                    dist_leap=True)
+        slab_bytes.clear()
+        reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        r = {"launches": read_launches(), "slab_bytes": list(slab_bytes),
+             "local_rows": int(out.color.shape[0])}
+        if kind in ("frame", "march"):
+            # The rows of every rank: what XLA gathers from JAX's output
+            # sharding.
+            t0 = time.perf_counter()
+            out = parallel.gather_rows(out, m)
+            torch.cuda.synchronize()
+            r["gather_rows_ms"] = (time.perf_counter() - t0) * 1e3
+        if m.rank == 0:
+            r["out"] = {k: getattr(out, k).cpu().numpy()
+                        for k in ("color", "depth", "num_volume_samples",
+                                  "num_distance_samples",
+                                  "num_empty_samples")}
+            r["iterations"] = int(out.iterations)
+        del out
+        r["ms"] = rank_ms(m, fn)
+        r["collective"] = gather_ms(m, c["gathered"], c["gather_dim"])
+        res[name] = r
+    mesh_mod._take_planes = take
+    return res
+
+
+def phase_multi(tmp_dir):
+    """(a) ``render_frame_sharded`` at the CLI pose, (b) ``march_sharded``,
+    (c) ``march_volume_sharded``, (d) ``sweep_volume_sharded``, each
+    against the single-device path on the card; returns the numbers for
+    the summary and each case's launches (summed over its ranks)."""
+    import numpy as np
+    import torch
+    from vkvolume_tpu_torch import cli, parallel
+    from vkvolume_tpu_torch.options import SkippingType
+    from vkvolume_tpu_torch.render import plan as plan_mod
+    from vkvolume_tpu_torch.render import sweep_bricks, sweep_frame
+    from vkvolume_tpu_torch.render.marcher import march
+    from vkvolume_tpu_torch.render.ray_setup import (make_rays,
+                                                     transpose_for_axis)
+
+    W, H = CLI_WIDTH, CLI_HEIGHT
+    f32 = torch.float32
+    args = cli.build_parser().parse_args(["--synth", "beetle", "--width",
+                                          str(W), "--height", str(H)])
+    eng, (v,) = cli.setup_engine(args)
+    eng.add_volume(v)
+    tf = eng._tf(v)
+    res, cases, refs = {}, {}, {}
+
+    def pose(w, h):
+        cam = cli.cli_camera(w, h)
+        eng.render(cam, w, h)
+        q = next(q for k, q in v._sweep_cache.items()
+                 if isinstance(k, tuple) and k[0] == "pose"
+                 and k[1][:2] == (cam.view.tobytes(), cam.proj.tobytes()))
+        return cam, q["uniforms"], q["view"]["p_axis"]
+
+    # (a) the w-grid frame: the planner's plan and the other warp variant
+    # (plan.two_pass_warp_plan's only_variant) at n = 2 and 4; n = 4 at
+    # 1280x720 (720 rows do not split into 8-row tiles over 4 ranks).
+    frame_in = {}
+    for n, h in ((2, H), (MULTI_RANKS, MULTI_TALL)):
+        cam, u, p = pose(W, h)
+        vol_t = v._sweep_cache[p]
+        kw = dict(vol_t=vol_t, occ_t=transpose_for_axis(v.dist_maps[0], p),
+                  grad_t=transpose_for_axis(v.gradient, p), tf=tf,
+                  rays=make_rays(u, h, W, "cuda"), u=u, pvm=eng._pvm(cam, v),
+                  p=p, oversample=eng._slab_oversample(v, vol_t.shape, tf))
+        frame_in[h] = kw
+        plan = sweep_frame.plan_frame(u, kw["rays"], p, tuple(vol_t.shape),
+                                      h, W)
+        assert plan is not None and plan["RECT_A"] is not None, plan
+        other = "A" if plan["warp_variant"] == "B" else "B"
+        tp = plan_mod.two_pass_warp_plan(
+            u, p, h, W, plan, plan_mod.analyze_view(u, h, W),
+            only_variant=other)
+        assert tp is not None, f"variant {other} infeasible at {W}x{h}"
+        for variant, pl in ((plan["warp_variant"], None),
+                            (other, dict(plan, **tp))):
+            name = f"a n={n} {W}x{h} {variant}"
+            used = plan if pl is None else pl
+            cases[name] = dict(kw, kind="frame", n=n, plan=pl,
+                               gathered=[((3, used["Hi"] // n, used["Wi"]),
+                                          f32)], gather_dim=1)
+
+            def ref(kw=kw, pl=pl):
+                a = (kw["vol_t"], kw["occ_t"], kw["tf"], kw["rays"], kw["u"],
+                     kw["pvm"], kw["grad_t"])
+                o = dict(p_axis=kw["p"], ert=True,
+                         oversample=kw["oversample"], dist_leap=True)
+                if pl is None:
+                    return sweep_frame.render_frame(*a, **o)
+                return sweep_frame.render_planned(*a, pl, **o)
+
+            refs[name] = (used, ref)
+    cases["a n=4 1280x720 error"] = dict(frame_in[H], kind="frame_error",
+                                         n=MULTI_RANKS)
+
+    # (b), (c) --renderer marcher's march at the CLI pose; (d) the brick
+    # sweep of the volume slabs, ERT off and on.
+    cam, u, p = pose(W, H)
+    rays = make_rays(u, H, W, "cuda", full=True)
+    mk = dict(tf=tf, rays=rays, bs=u.block_size, pvm=eng._pvm(cam, v),
+              maps=v.dist_maps)
+    px = [((H, W, 4), f32), ((H, W), f32)] + [((H, W), torch.int32)] * 3
+    cases["b march_sharded"] = dict(
+        mk, kind="march", n=MULTI_RANKS, density=v.density,
+        gradient=v.gradient,
+        gathered=[((H // MULTI_RANKS,) + s[1:], d) for s, d in px],
+        gather_dim=0)
+    cases["c march_volume_sharded"] = dict(
+        mk, kind="march_volume", n=MULTI_RANKS,
+        gathered=[((1,) + s, d) for s, d in px], gather_dim=0)
+    vol_t = v._sweep_cache[p]
+    occ_t = transpose_for_axis(v.dist_maps[0], p)
+    grad_t = transpose_for_axis(v.gradient, p)
+    Np = vol_t.shape[0]
+    # sweep_volume_sharded's slab: bp-aligned planes per rank plus the halo.
+    bp = -(-Np // occ_t.shape[0])
+    Pz = -(-(-(-Np // MULTI_RANKS)) // bp) * bp
+    np_loc = -(-(Pz + BRICK_HALO) // bp) * bp
+    view, splan = sweep_frame.select_view_plan(
+        u, H, W, lambda q: tuple(vol_t.shape), axes=(p,))
+    assert splan is not None and splan.get("R_brick") is not None
+    Hi, Wi = splan["Hi"], splan["Wi"]
+    for ert in (False, True):
+        cases[f"d sweep_volume_sharded ert={ert}"] = dict(
+            kind="sweep_volume", n=MULTI_RANKS, tf=tf, u=u,
+            pvm=eng._pvm(cam, v), p=p, height=H, width=W, ert=ert,
+            gathered=[((1, Hi, Wi, 4), f32), ((1, Hi, Wi), f32),
+                      ((1, Hi, Wi), torch.int32)], gather_dim=0)
+    host = {}
+    for k, t in (("density", v.density), ("gradient", v.gradient),
+                 ("vol_t", vol_t), ("occ_t", occ_t), ("grad_t", grad_t)):
+        host[k] = os.path.join(tmp_dir, f"{k}.npy")
+        np.save(host[k], t.cpu().numpy())
+
+    # The single-device references, on the same inputs.
+    t0 = time.perf_counter()
+    single = {name: fn() for name, (_, fn) in refs.items()}
+    single_ms = {name: statistics.median(synced_ms(fn, MULTI_REPS))
+                 for name, (_, fn) in refs.items()}
+    m_ref = march(v.density, v.gradient, v.dist_maps, tf, rays, u.block_size,
+                  mk["pvm"], skipping_type=SkippingType.DISTANCE,
+                  early_ray_termination=True, precomputed_gradient=True,
+                  count_samples=True)
+    march_ms = statistics.median(synced_ms(lambda: march(
+        v.density, v.gradient, v.dist_maps, tf, rays, u.block_size,
+        mk["pvm"], skipping_type=SkippingType.DISTANCE,
+        early_ray_termination=True, precomputed_gradient=True,
+        count_samples=True), MULTI_REPS))
+    sgn = 1 if splan["sgn_p"] > 0 else -1
+    gp = [splan["wu0"], splan["dwu"], splan.get("cu", 0.0) or 0.0,
+          splan["wv0"], splan["dwv"], splan.get("cv", 0.0) or 0.0]
+    wu, wv = sweep_frame.w_grid(gp, Hi, Wi, "cuda")
+    s_lo, s_hi, cov, kappa = sweep_bricks.grid_fields(
+        u, wu, wv, sgn, p, max(vol_t.shape), Np)
+    s_ref = {ert: sweep_bricks.sweep_bricks(
+        vol_t, occ_t, tf, u, mk["pvm"], (wu, wv, s_lo, s_hi, kappa, cov),
+        p_axis=p, ert=ert, count_samples=False, n_slabs=Np, sgn=sgn,
+        tile_h=splan["tile_h"], dist_leap=True, grad_t=grad_t)
+        for ert in (False, True)}
+    torch.cuda.synchronize()
+    log(f"phase 11: single-device references in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    job = {"cases": cases, "host": host, "sub": 2}
+    ranks = parallel.spawn(multi_rank, MULTI_RANKS, backend="gloo",
+                           args=(job,), timeout=MULTI_DEADLINE_S)
+    log(f"phase 11: {MULTI_RANKS} gloo ranks in "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    nccl_name = f"a n=1 {W}x{H} nccl"
+    first = next(k for k in cases if k.startswith(f"a n=2 {W}x{H}"))
+    plan = refs[first][0]
+    nccl_job = {"cases": {nccl_name: dict(
+        cases[first], n=1, gathered=[((3, plan["Hi"], plan["Wi"]), f32)])},
+        "host": host, "sub": None}
+    (nccl,) = parallel.spawn(multi_rank, 1, backend="nccl",
+                             args=(nccl_job,), timeout=MULTI_DEADLINE_S)
+    log(f"phase 11: 1 nccl rank in {time.perf_counter() - t0:.1f} s")
+    refs[nccl_name] = refs[first]
+    single[nccl_name] = single[first]
+    single_ms[nccl_name] = single_ms[first]
+
+    launches = {}
+
+    def summed(name, rs):
+        return {k: sum(r[name]["launches"][k] for r in rs)
+                for k in rs[0][name]["launches"]}
+
+    def line(name, rs, what, backend):
+        r0 = rs[0][name]
+        nbytes, cms = r0["collective"]
+        log(f"phase 11 {name}: {what}; {backend}, "
+            f"{len(rs)} ranks: {r0['ms']:.4f} ms (median of {MULTI_REPS} "
+            f"synced calls), collective {nbytes} bytes {cms:.4f} ms; "
+            f"launches {launches[name]}")
+
+    groups = [(name, ranks[:cases[name]["n"]], "gloo") for name in cases]
+    groups.append((nccl_name, [nccl], "nccl"))
+    frames = {}
+    for name, rs, backend in groups:
+        if name.startswith("a") and "error" in name:
+            for r in rs:
+                assert "not tile-divisible" in r[name]["error"], r[name]
+            log(f"phase 11 {name}: ValueError on every rank "
+                f"({rs[0][name]['error']})")
+            continue
+        launches[name] = summed(name, rs)
+        for r in rs:
+            assert r["backend"] == backend, (r["backend"], backend)
+        out = rs[0][name]["out"]
+        if name.startswith("a"):
+            plan = refs[name][0]
+            want = single[name]
+            swept = ["K1" if r[name]["launches"]["K1"] else "K7"
+                     for r in rs]
+            for r, s in zip(rs, swept):
+                assert r[name]["launches"][s] > 0 and \
+                    r[name]["launches"]["K2"] > 0, (name, r[name]["launches"])
+                assert r[name]["local_rows"] == (
+                    want.color.shape[0] // len(rs))
+            same = (plan["Hi"] // len(rs)) % plan["tile_h"] == 0
+            got_c = torch.from_numpy(out["color"]).cuda()
+            got_d = torch.from_numpy(out["depth"]).cuda()
+            err = {k: float((a - b).abs().max()) for k, a, b in (
+                ("lum", got_c[..., 0], want.color[..., 0]),
+                ("alpha", got_c[..., 3], want.color[..., 3]),
+                ("depth", got_d, want.depth))}
+            if same and swept[0] == "K1":
+                assert all(e == 0.0 for e in err.values()), (name, err)
+            else:
+                diff = (got_c - want.color).abs().amax(-1)
+                bad = float((diff > FRAME_TOL).float().mean())
+                da = abs(float(got_c[..., 3].mean())
+                         - float(want.color[..., 3].mean()))
+                assert bad <= FRAME_BAD_SHARE and da <= FRAME_ALPHA_MEAN, \
+                    (name, bad, da)
+            assert covered_share(got_c) >= MIN_COVERED
+            frames[name] = dict(ms=rs[0][name]["ms"],
+                                single_ms=single_ms[name],
+                                collective=rs[0][name]["collective"],
+                                variant=plan["warp_variant"], sweep=swept[0],
+                                backend=backend, n=len(rs))
+            line(name, rs, f"Hi={plan['Hi']} Wi={plan['Wi']} tile_h="
+                 f"{plan['tile_h']} variant {plan['warp_variant']}, "
+                 f"{swept[0]} + K2 on every rank, max err vs the "
+                 f"single-device frame {err}, single-device "
+                 f"{single_ms[name]:.4f} ms, gather_rows "
+                 f"{rs[0][name]['gather_rows_ms']:.2f} ms", backend)
+        elif name.startswith("b"):
+            for r in rs:
+                check_none(r[name]["launches"], ("K1", "K7", "K2", "K8"),
+                           name)
+            for k in ("num_volume_samples", "num_distance_samples",
+                      "num_empty_samples"):
+                assert np.array_equal(out[k], getattr(m_ref, k).cpu().numpy()
+                                      ), f"{name}: {k} differs"
+            err = float(np.abs(out["color"]
+                               - m_ref.color.cpu().numpy()).max())
+            assert err <= MARCH_SHARDED_TOL, (name, err)
+            assert rs[0][name]["iterations"] == m_ref.iterations
+            res["march_sharded"] = dict(ms=rs[0][name]["ms"],
+                                        single_ms=march_ms,
+                                        collective=rs[0][name]["collective"])
+            line(name, rs, f"counters equal on every pixel, colour max err "
+                 f"{err:.3g}, iterations {m_ref.iterations}, no sweep or "
+                 f"warp launch, single-device {march_ms:.4f} ms", backend)
+        elif name.startswith("c"):
+            a = m_ref.color.cpu().numpy()
+            b = out["color"]
+            e_max = float(np.abs(a - b).max())
+            e_alpha = abs(float(a[..., 3].mean()) - float(b[..., 3].mean()))
+            e_depth = float(np.abs(out["depth"]
+                                   - m_ref.depth.cpu().numpy()).max())
+            assert e_max < VOL_MARCH_TOL[0] and e_alpha < VOL_MARCH_TOL[1] \
+                and e_depth <= VOL_MARCH_TOL[2], (e_max, e_alpha, e_depth)
+            D = v.density.shape[0]
+            Pz = -(-D // len(rs))
+            for r in rs:
+                sl = r[name]["slab_bytes"]
+                assert len(sl) == 2, sl             # density, gradient
+                assert all(got * D <= (Pz + 4) * full for got, full in sl), sl
+            res["march_volume_sharded"] = dict(
+                ms=rs[0][name]["ms"], collective=rs[0][name]["collective"],
+                slab=rs[0][name]["slab_bytes"][0])
+            line(name, rs, f"vs the single-device march: max colour "
+                 f"{e_max:.4g}, mean alpha {e_alpha:.3g}, depth "
+                 f"{e_depth:.3g}; each rank's slabs "
+                 f"{[b for b, _ in rs[0][name]['slab_bytes']]} bytes of "
+                 f"{rs[0][name]['slab_bytes'][0][1]} (Pz + 4 = {Pz + 4} of "
+                 f"{D} planes)", backend)
+        else:
+            ert = name.endswith("True")
+            ref = s_ref[ert]
+            for r in rs:
+                assert r[name]["launches"]["K1"] > 0, (name, r[name])
+                sl = r[name]["slab_bytes"]
+                assert len(sl) == 3, sl             # volume, gradient, occ
+                assert all(got * Np <= np_loc * full for got, full in sl), sl
+            rc, rd = ref.color.cpu().numpy(), ref.depth.cpu().numpy()
+            oc, od = out["color"], out["depth"]
+            e = float(np.abs(oc - rc).max())
+            hit = (rd != 0) & (od != 0)
+            e_d = float(np.abs(od[hit] - rd[hit]).max())
+            agree = float(((rd != 0) == (od != 0)).mean())
+            assert e < VOL_SWEEP_TOL[ert] and e_d <= VOL_SWEEP_DEPTH_TOL \
+                and agree >= VOL_SWEEP_HIT_SHARE, (name, e, e_d, agree)
+            assert rc[..., 3].max() > 0.3
+            res[f"sweep_volume_sharded ert={ert}"] = dict(
+                ms=rs[0][name]["ms"], collective=rs[0][name]["collective"],
+                slab=rs[0][name]["slab_bytes"][0])
+            line(name, rs, f"grid {Hi}x{Wi}: K1 on every rank; vs the "
+                 f"single-device brick sweep: colour {e:.3g}, depth on hits "
+                 f"{e_d:.3g}, hit sets agree {agree:.5f}; each rank's "
+                 f"slabs {[b for b, _ in rs[0][name]['slab_bytes']]} bytes "
+                 f"({np_loc} of {Np} planes)", backend)
+    variants = {(f["n"], f["variant"]) for f in frames.values()}
+    assert {(2, "A"), (2, "B"), (4, "A"), (4, "B")} <= variants, variants
+    res["frames"] = frames
+    del eng, v, single, refs, cases
+    torch.cuda.empty_cache()
+    return res, launches
+
+
 def main() -> int:
     import torch
 
@@ -2302,6 +2783,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as out_dir:
         api, api_launches = phase_api(out_dir)
     log(f"phase 10: {time.perf_counter() - t10:.1f} s")
+    t11 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp_dir:
+        multi, multi_launches = phase_multi(tmp_dir)
+    log(f"phase 11: {time.perf_counter() - t11:.1f} s")
     for more in (cli_rows, accel_rows, orbit_rows, tex_rows, matrix_rows):
         rows.update(more)
     assert "jax" not in sys.modules
@@ -2405,7 +2890,10 @@ def main() -> int:
                         "library_ms": lib,
                         "launches_phase10": {
                             path: counts[counter]
-                            for path, counts in api_launches.items()}})
+                            for path, counts in api_launches.items()},
+                        "launches_phase11": {
+                            path: counts[counter]
+                            for path, counts in multi_launches.items()}})
     log(f"frame_ms_median {frame_ms:.4f} map_update_ms {map_ms:.4f} "
         f"({WIDTH}x{HEIGHT}, skipmode 3)")
     log(f"cli_frame_ms_median {cli_ms:.4f} cli_map_update_ms {cli_map_ms:.4f} "
@@ -2457,6 +2945,21 @@ def main() -> int:
     for name, upd, ren, route in api["viewer"]:
         log(f"viewer {name}: update {upd} ms, render {ren} ms ({route}, "
             f"{VIEWER_WIDTH}x{VIEWER_HEIGHT})")
+    for name, r in multi["frames"].items():
+        nbytes, cms = r["collective"]
+        log(f"render_frame_sharded {name}: {r['ms']:.4f} ms ({r['n']} "
+            f"{r['backend']} ranks on one card, {r['sweep']} + K2 variant "
+            f"{r['variant']}), single-device {r['single_ms']:.4f} ms; "
+            f"all_gather {nbytes} bytes {cms:.4f} ms")
+    for k in ("march_sharded", "march_volume_sharded",
+              "sweep_volume_sharded ert=False",
+              "sweep_volume_sharded ert=True"):
+        r = multi[k]
+        nbytes, cms = r["collective"]
+        log(f"{k}: {r['ms']:.4f} ms ({MULTI_RANKS} gloo ranks on one card)"
+            + (f", single-device {r['single_ms']:.4f} ms"
+               if "single_ms" in r else "")
+            + f"; collective {nbytes} bytes {cms:.4f} ms")
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -151,7 +151,8 @@ def test_port_never_imports_jax():
             "vkvolume_tpu_torch.interop, vkvolume_tpu_torch.cli, "
             "vkvolume_tpu_torch.io, vkvolume_tpu_torch.io.native, "
             "vkvolume_tpu_torch.utils.image, vkvolume_tpu_torch.viewer, "
-            "vkvolume_tpu_torch.engine.accel_cache; "
+            "vkvolume_tpu_torch.engine.accel_cache, "
+            "vkvolume_tpu_torch.parallel; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'PIL' not in sys.modules, 'PIL imported'; "
             "assert not any(m.startswith('vkvolume_tpu.') or m == "

@@ -228,13 +228,15 @@ def stats_to_dict(stats_vec) -> dict:
 
 
 def select_view_plan(uniforms: FrameUniforms, height: int, width: int,
-                     shape_for, max_oversample: float = 2.5):
+                     shape_for, max_oversample: float = 2.5, axes=None):
     """Cost-based principal-axis selection: plan every single-signed
     candidate axis (``analyze_view``'s ``unmixed_axes``) and keep the
     cheapest (near the axis handover the largest-|mean| axis can cost
     5-30× the runner-up). ``shape_for(p)`` returns the p-transposed volume
-    shape. Returns (view, plan): (None, None) when no ray hits; (view, None)
-    with view["mixed"] when no axis is single-signed."""
+    shape; ``axes`` (optional) restricts the candidates, for a caller
+    whose volume is already transposed for one axis. Returns (view,
+    plan): (None, None) when no ray hits; (view, None) with view["mixed"]
+    when no axis is single-signed."""
     view0 = plan_mod.analyze_view(uniforms, height, width)
     if view0 is None or view0.get("mixed"):
         return view0, None
@@ -266,6 +268,8 @@ def select_view_plan(uniforms: FrameUniforms, height: int, width: int,
     cands = []
     for ax, sgn_ax in view0.get("unmixed_axes") or [(view0["p_axis"],
                                                      view0["sgn"])]:
+        if axes is not None and ax not in axes:
+            continue
         view = (view0 if ax == view0["p_axis"]
                 else plan_mod.analyze_view(uniforms, height, width,
                                            restrict=(ax, sgn_ax)))
@@ -588,11 +592,14 @@ def _mob_inv(w0, dw, c, w):
     return (w - w0) / _guard(dw + c * (w - w0))
 
 
-def w_grid(gp, Hi: int, Wi: int, device) -> tuple[torch.Tensor, torch.Tensor]:
-    """(wu, wv) of every w-grid cell centre, (Hi, Wi) each."""
+def w_grid(gp, Hi: int, Wi: int, device,
+           row0: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """(wu, wv) of the w-grid cell centres of grid rows [row0, row0 + Hi),
+    (Hi, Wi) each (``row0``: a shard's first row)."""
     wu0, dwu, cu_g, wv0, dwv, cv_g = (float(v) for v in gp)
     f = torch.float32
-    gyi = torch.arange(Hi, dtype=torch.int32, device=device).to(f)[:, None]
+    gyi = torch.arange(row0, row0 + Hi, dtype=torch.int32,
+                       device=device).to(f)[:, None]
     gxi = torch.arange(Wi, dtype=torch.int32, device=device).to(f)[None, :]
     wu_g = _mob_fwd(wu0, dwu, cu_g, gxi + 0.5).expand(Hi, Wi).contiguous()
     wv_g = _mob_fwd(wv0, dwv, cv_g, gyi + 0.5).expand(Hi, Wi).contiguous()
@@ -629,20 +636,26 @@ def pixel_grid_coords(rays: RaySetup, gp, p_axis: int):
 
 
 def warp_positions(gx: torch.Tensor, gy: torch.Tensor, gp, hcoef, *,
-                   Hi: int, Wi: int, warp_variant: str):
+                   Hi: int, Wi: int, warp_variant: str,
+                   H_total: int | None = None, row0: int = 0):
     """The two passes' positions: variant "A" (row-first) → (xa (Hi, W),
     gy_t (W, Hp)); variant "B" (column-first) → (yb (Wi, Hp), gx_p (Hp, W)).
     First-pass positions whose solved pixel coordinate lies outside the
-    image (+ margin) are masked to -10 — the plan's feasibility window."""
+    image (+ margin) are masked to -10 — the plan's feasibility window.
+    ``gx``/``gy`` may be a shard's image rows: ``H_total`` is the whole
+    image's height (the window) and ``row0`` the shard's first row, the
+    image row at which variant B solves its first local row."""
     wu0, dwu, cu_g, wv0, dwv, cv_g = (float(v) for v in gp)
     au, bu, cu_, av, bv, cv_, ap, bp_, cp_ = (float(v) for v in hcoef)
     H, W = gx.shape
+    H_img = H if H_total is None else H_total
     Hp = -(-H // 128) * 128
     f = torch.float32
     dev = gx.device
     if warp_variant == "B":
         xgi = torch.arange(Wi, dtype=torch.int32, device=dev).to(f)[:, None]
-        iir = torch.arange(Hp, dtype=torch.int32, device=dev).to(f)[None, :]
+        iir = torch.arange(row0, row0 + Hp, dtype=torch.int32,
+                           device=dev).to(f)[None, :]
         wu_c = _mob_fwd(wu0, dwu, cu_g, xgi + 0.5)
         den = _guard(bu - wu_c * bp_)
         jhat = (wu_c * cp_ - cu_ - (au - wu_c * ap) * iir) / den
@@ -650,7 +663,7 @@ def warp_positions(gx: torch.Tensor, gy: torch.Tensor, gp, hcoef, *,
         wv_b = (av * iir + bv * jhat + cv_) / dd
         yb = _mob_inv(wv0, dwv, cv_g, wv_b) - 0.5
         ok_b = (torch.isfinite(yb) & (jhat >= -16.0)
-                & (jhat <= float(W) + 15.0) & (iir < float(H)))
+                & (jhat <= float(W) + 15.0) & (iir < float(H_img)))
         yb = torch.where(ok_b, yb, -10.0).contiguous()
         gx_p = torch.nn.functional.pad(gx, (0, 0, 0, Hp - H), value=-10.0)
         return yb, gx_p.contiguous()
@@ -663,7 +676,7 @@ def warp_positions(gx: torch.Tensor, gy: torch.Tensor, gp, hcoef, *,
     wu_a = (au * ihat + bu * jj + cu_) / dd
     xa = _mob_inv(wu0, dwu, cu_g, wu_a) - 0.5
     ok_a = (torch.isfinite(xa) & (ihat >= -16.0)
-            & (ihat <= float(H) + 15.0))
+            & (ihat <= float(H_img) + 15.0))
     xa = torch.where(ok_a, xa, -10.0).contiguous()
     gy_t = torch.nn.functional.pad(gy.T, (0, Hp - H), value=-10.0)
     return xa, gy_t.contiguous()
@@ -672,18 +685,21 @@ def warp_positions(gx: torch.Tensor, gy: torch.Tensor, gp, hcoef, *,
 def _pixel_stage(chans: torch.Tensor, rays: RaySetup, gp, hcoef, tf, *,
                  p_axis: int, Hi: int, RECT_A, R_warp, warp_variant: str,
                  iterations: int, test: Test = Test.NONE,
-                 dim_max: int) -> RenderOutput:
+                 dim_max: int, H_total: int | None = None,
+                 row0: int = 0) -> RenderOutput:
     """Warp of the (C, Hi, Wi) grid channels (lum, alpha, depth, and the
     sample count under ``Test.NUM_TEXTURE_SAMPLES``) to pixels by the
     plan's warp — two-pass (``RECT_A``), single-pass K8 (``R_warp``) or the
     gather warp (neither: a ``warp_xla`` plan) — then the pixel-space
-    outputs."""
+    outputs. ``rays`` may be a shard's image rows, from ``row0`` of an
+    ``H_total``-row image (``warp_positions``)."""
     H, W = rays.valid.shape
     gx, gy = pixel_grid_coords(rays, gp, p_axis)
     if RECT_A is not None:
         pos1, pos2 = warp_positions(gx, gy, gp, hcoef, Hi=Hi,
                                     Wi=chans.shape[2],
-                                    warp_variant=warp_variant)
+                                    warp_variant=warp_variant,
+                                    H_total=H_total, row0=row0)
         # u16-encoded warp: lum/alpha/depth live in [0, 1] (depth is
         # reverse-Z clip depth; no-hit pixels are overwritten below); the
         # sample count is an integer far below 65535 (at most n_slabs),
@@ -722,7 +738,7 @@ def _frame_body(vol_t: torch.Tensor, occupancy_t: torch.Tensor, tf,
                 grad_t: torch.Tensor | None = None,
                 test: Test = Test.NONE,
                 texture_tf: bool = False, return_chans: bool = False,
-                rays: RaySetup | None = None):
+                rays: RaySetup | None = None, shard=None):
     """One frame: pixel rays → w-grid fields → sweep (K1, or K7) → channel
     stack → warp (K2 twice, K8, or the gather warp) → pixel outputs.
     ``packed`` is pack_frame_scalars' array; ``grad_t`` the gradient map
@@ -731,19 +747,26 @@ def _frame_body(vol_t: torch.Tensor, occupancy_t: torch.Tensor, tf,
     pixel stage and return its inputs (channel stack, pixel rays, sweep
     iterations), as the JAX frame's ``return_chans`` does for
     ``stage_breakdown``. ``rays``: the pixel rays of the warp (the
-    caller's, ``render_frame``), by default this pose's (``make_rays``)."""
+    caller's, ``render_frame``), by default this pose's (``make_rays``).
+
+    ``shard`` (``parallel.Mesh``; ``render_frame_sharded``): this rank
+    sweeps its ``Hi / size`` contiguous grid rows, one all-gather rebuilds
+    the grid, and the warp runs on the rank's pixel rows, which ``rays``
+    then holds (of a ``height``-row image)."""
     uniforms, pvm, gp, hcoef = unpack_frame_scalars(packed)
     dev = vol_t.device
     if rays is None:
         rays = make_rays(uniforms, height, width, dev)
-    wu_g, wv_g = w_grid(gp, Hi, Wi, dev)
+    n, r = (1, 0) if shard is None else (shard.size, shard.rank)
+    Hi_loc = Hi // n
+    wu_g, wv_g = w_grid(gp, Hi_loc, Wi, dev, row0=r * Hi_loc)
     sgn = 1 if sgn_p > 0 else -1
     num_test = test == Test.NUM_TEXTURE_SAMPLES
     # The brick sweep whenever the plan proved its rect feasible and every
     # voxel plane gets a slab (the plan's drift margins assume it);
     # otherwise the per-slab sweep.
     if R_brick is not None and n_slabs >= vol_t.shape[0] \
-            and Hi % tile_h == 0:
+            and Hi_loc % tile_h == 0:
         s_lo, s_hi, cov, kappa = sweep_bricks.grid_fields(
             uniforms, wu_g, wv_g, sgn, p_axis, max(vol_t.shape), n_slabs)
         grid_out = sweep_bricks.sweep_bricks(
@@ -770,13 +793,18 @@ def _frame_body(vol_t: torch.Tensor, occupancy_t: torch.Tensor, tf,
     chans = [grid_out.color[..., 0], grid_out.color[..., 3], grid_out.depth]
     if num_test:
         chans.append(grid_out.num_volume_samples.to(torch.float32))
+    chans = torch.stack(chans)
+    if shard is not None:
+        # The frame's one collective: the full grid from every rank's rows.
+        chans = shard.all_gather(chans, dim=1)
     if return_chans:
-        return torch.stack(chans), rays, grid_out.iterations
-    return _pixel_stage(torch.stack(chans), rays, gp, hcoef, tf,
+        return chans, rays, grid_out.iterations
+    return _pixel_stage(chans, rays, gp, hcoef, tf,
                         p_axis=p_axis, Hi=Hi, RECT_A=RECT_A, R_warp=R_warp,
                         warp_variant=warp_variant,
                         iterations=grid_out.iterations, test=test,
-                        dim_max=max(vol_t.shape))
+                        dim_max=max(vol_t.shape), H_total=height,
+                        row0=r * rays.valid.shape[0])
 
 
 def render_frame(vol_t: torch.Tensor, occupancy_t: torch.Tensor | None, tf,
@@ -798,6 +826,25 @@ def render_frame(vol_t: torch.Tensor, occupancy_t: torch.Tensor | None, tf,
     plan = plan_frame(uniforms, rays, p_axis, tuple(vol_t.shape), H, W)
     if plan is None:
         raise PallasUnsupported("view exceeds w-grid kernel limits")
+    return render_planned(vol_t, occupancy_t, tf, rays, uniforms,
+                          proj_view_model, grad_t, plan, p_axis=p_axis,
+                          ert=ert, test=test, oversample=oversample,
+                          dist_leap=dist_leap, texture_tf=texture_tf)
+
+
+def render_planned(vol_t: torch.Tensor, occupancy_t: torch.Tensor | None, tf,
+                   rays: RaySetup, uniforms: FrameUniforms, proj_view_model,
+                   grad_t: torch.Tensor | None, plan: dict, *, p_axis: int,
+                   ert: bool = True, test: Test = Test.NONE,
+                   oversample: float = 1.0, dist_leap: bool = False,
+                   texture_tf: bool = False, height: int | None = None,
+                   shard=None) -> RenderOutput:
+    """``render_frame`` after its plan: the frame of ``plan`` (``plan_frame``'s
+    dict, or one with another warp variant from
+    ``plan.two_pass_warp_plan``) for the pixel rays ``rays`` — a shard's
+    rows of a ``height``-row image with ``shard`` (``_frame_body``)."""
+    if height is None:
+        height = rays.valid.shape[0]
     if occupancy_t is None:
         occupancy_t = torch.zeros((1, 1, 1), dtype=torch.uint8,
                                   device=vol_t.device)
@@ -812,6 +859,7 @@ def render_frame(vol_t: torch.Tensor, occupancy_t: torch.Tensor | None, tf,
         n_slabs=int(max(2, round(vol_t.shape[0] * oversample))),
         sgn_p=plan["sgn_p"], dist_leap=dist_leap, RECT_A=plan["RECT_A"],
         tile_h=plan.get("tile_h", 8), R_brick=plan.get("R_brick"),
-        height=H, width=W, warp_variant=plan.get("warp_variant", "A"),
+        height=height, width=rays.valid.shape[1],
+        warp_variant=plan.get("warp_variant", "A"),
         rect_w=plan.get("rect_w", 256), grad_t=grad_t, test=test,
-        texture_tf=texture_tf, rays=rays)
+        texture_tf=texture_tf, rays=rays, shard=shard)
