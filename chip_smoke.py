@@ -36,6 +36,18 @@ full-scale synthetic stag beetle (494x832x832 u8) into bench.py's engine
      the counters at 0 again, the accel API's relaxation (K6) completes the
      isotropic map from K5's output, bit-exact to the engine's map, and K6
      is held bit-exact to its plain version on both axes and all senses;
+     then (phase 4c) the synthetic beetle at scale FILE_SCALE goes through
+     ``bench.write_reference_format`` to a ``.uint16`` file and its
+     ``.header`` in a temporary directory: ``from_file(..., device="cuda")``
+     must put the synthesised u8 on the card byte for byte, and the CLI's
+     frame of that file (``cli <file>``) must equal, in colour, depth and
+     sample counters, the CLI engine's frame of the in-memory volume built
+     with ``from_array`` and the transform the writer records (voxel size
+     0.001, 90 degrees about x) and fitted as the CLI fits it; the files
+     are deleted; and a default
+     ``Engine(device="cuda")`` must render a DEFAULT_SIZE frame through
+     the per-ray marcher (``last_renderer == "marcher"``, no sweep or warp
+     launch), as the JAX engine does;
   5. the orbit, with the counters at 0 before each run:
      (a) ``cli --synth beetle --azimuth 80 --sampling 0.25 --output <png>``:
          the engine narrows the view's 384-lane plan to a 256-lane re-plan,
@@ -185,6 +197,10 @@ STILL_AZIMUTH, STILL_SAMPLING = 80.0, 0.25   # phase 5a's still frame
 ORBIT_POSES = {30.0: ("K1", "K2"), 35.0: ("K7", "K2"), 40.0: ("K7", "gather"),
                90.0: ("K1", "K8")}   # benchmark-orbit azimuth: its route
 XLA_SWEEP_REPS = 3      # synced frames timed per XLA-sweep pose
+# Phase 4c: the reference file format's round trip (a .uint16 file of
+# about 86 MB at this scale) and the default engine's frame size.
+FILE_SCALE = 0.5
+DEFAULT_SIZE = 64
 # JAX's cross-route tolerance, texture through K1 against the XLA sweep
 # (tests/test_sweep.py:328-333): share of |diff| > 0.06, mean alpha.
 CROSS_TOL, CROSS_BAD_SHARE, CROSS_ALPHA_MEAN = 0.06, 0.01, 5e-3
@@ -683,6 +699,102 @@ def warp_library(chans, pos1, pos2, variant: str):
     err = float(torch.where(inside, first - want, 0.0).abs().max())
     assert err <= 1e-4, f"grid_sample pass 1 differs by {err}"
     return library, err
+
+
+def phase_file(out_dir):
+    """Phase 4c: the reference format's round trip through the card and
+    the CLI, then the default engine's renderer."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from vkvolume_tpu_torch import cli
+    from vkvolume_tpu_torch.bench import (DATASETS, synthesize,
+                                          write_reference_format)
+    from vkvolume_tpu_torch.engine import Engine, from_array, from_file
+    from vkvolume_tpu_torch.utils import math3d
+
+    ds = DATASETS["beetle"]
+    vol = synthesize(ds, seed=0, scale=FILE_SCALE)
+    path = os.path.join(out_dir, f"beetle_x{FILE_SCALE}.uint16")
+    png = os.path.join(out_dir, "cli_file.png")
+    t0 = time.perf_counter()
+    write_reference_format(ds, vol, path)
+    write_s = time.perf_counter() - t0
+    try:
+        assert os.path.getsize(path) == 2 * vol.size
+        t0 = time.perf_counter()
+        loaded = from_file(path, device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        assert loaded.density.device.type == "cuda"
+        assert loaded.density.dtype == torch.uint8
+        assert torch.equal(loaded.density,
+                           torch.from_numpy(vol).to(loaded.density.device)), \
+            "the volume read back differs from the synthesised u8"
+        log(f"phase 4c: {os.path.basename(path)} {vol.shape} "
+            f"{os.path.getsize(path)} bytes, written in {write_s:.2f} s, "
+            f"read onto the card in {load_s:.2f} s, byte-equal")
+        del loaded
+        # The CLI's default frame of the file, and that of the in-memory
+        # volume built apart from the file: from_array with the transform
+        # the writer records (voxel size 0.001, a 90 degree turn about x)
+        # and the CLI's options and fit, on the CLI's engine.
+        _, _, out_f = cli.run([path, "--output", png])
+        eng_m, volumes = cli.setup_engine(cli.build_parser().parse_args(
+            ["--synth", "beetle", "--synth-scale", str(FILE_SCALE)]))
+        v = from_array(vol, volumes[0].options,
+                       block_size=volumes[0].block_size,
+                       voxel_size=(0.001,) * 3, device="cuda")
+        v.image_transform = math3d.rotate(np.deg2rad(90.0), (1.0, 0.0, 0.0)) \
+            @ v.image_transform
+        cli.fit_to_viewport(v)
+        eng_m.add_volume(v)
+        out_m = eng_m.render(cli.cli_camera(CLI_WIDTH, CLI_HEIGHT),
+                             CLI_WIDTH, CLI_HEIGHT)
+        torch.cuda.synchronize()
+        assert eng_m.last_renderer == "pallas"
+        for f in dataclasses.fields(out_f):
+            a, b = getattr(out_f, f.name), getattr(out_m, f.name)
+            assert (torch.equal(a, b) if isinstance(a, torch.Tensor)
+                    else a == b), f"CLI frame of the file: {f.name} differs"
+        share = covered_share(out_f.color)
+        assert share >= MIN_COVERED, f"file frame nearly empty ({share})"
+        log(f"phase 4c: the CLI frame of the file equals the in-memory "
+            f"volume's ({CLI_WIDTH}x{CLI_HEIGHT}, covered {share:.4f})")
+        del eng_m, volumes, v, out_f, out_m
+    finally:
+        for p in (path, path + ".header", png):
+            if os.path.exists(p):
+                os.remove(p)
+
+    # The default engine: the per-ray marcher, as in the JAX package.
+    eng = Engine(device="cuda")
+    assert eng.renderer == "marcher"
+    v = from_array(vol, block_size=4, device="cuda")
+    v.set_scale((100.0 / max(vol.shape),) * 3)
+    eng.add_volume(v)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = eng.render(cli.cli_camera(DEFAULT_SIZE, DEFAULT_SIZE),
+                     DEFAULT_SIZE, DEFAULT_SIZE)
+    torch.cuda.synchronize()
+    default_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_launches()
+    assert eng.last_renderer == "marcher"
+    assert eng.renderer_counts == {"pallas": 0, "sweep": 0, "marcher": 1}
+    check_none(launches, ("K1", "K1 texture", "K1 walk", "K2", "K7",
+                          "K7 walk", "K8"), "phase 4c")
+    assert tuple(out.color.shape) == (DEFAULT_SIZE, DEFAULT_SIZE, 4)
+    assert bool(torch.isfinite(out.color).all())
+    share = covered_share(out.color)
+    assert share >= MIN_COVERED, f"default-engine frame nearly empty " \
+        f"({share})"
+    log(f"phase 4c: default Engine -> {eng.last_renderer}, "
+        f"{DEFAULT_SIZE}x{DEFAULT_SIZE} in {default_ms:.1f} ms (one synced "
+        f"frame), {int(out.iterations)} bodies, covered {share:.4f}")
+    return dict(write_s=write_s, load_s=load_s, default_ms=default_ms)
 
 
 def reset_launches():
@@ -2765,6 +2877,8 @@ def main() -> int:
         accel_rows, accel_launches = phase_accel(cli_eng, gpu_timer)
         del cli_eng
         torch.cuda.empty_cache()
+        file_info = phase_file(out_dir)
+        torch.cuda.empty_cache()
         orbit_rows, still_launches, orbit_launches, still_ms, tiers = \
             phase_orbit(gpu_timer, out_dir)
         torch.cuda.empty_cache()
@@ -2903,6 +3017,10 @@ def main() -> int:
         f"{CLI_HEIGHT}); orbit ms/frame by azimuth "
         + ", ".join(f"{az:.0f}: {ms:.4f}" for az, ms in tiers.items()))
     log(f"orbit launches {orbit_launches}")
+    log(f"reference format (beetle x{FILE_SCALE}): written in "
+        f"{file_info['write_s']:.2f} s, read onto the card in "
+        f"{file_info['load_s']:.2f} s; default Engine marcher frame "
+        f"{file_info['default_ms']:.1f} ms ({DEFAULT_SIZE}x{DEFAULT_SIZE})")
     log(f"texture_cli_frame_ms_median {tex_ms:.4f} (K1 texture + K2, "
         f"{CLI_WIDTH}x{CLI_HEIGHT}); xla_sweep_ms_median CLI pose "
         f"{sweep_ms['cli']:.4f}, side view {sweep_ms['side']:.4f} "

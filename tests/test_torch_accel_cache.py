@@ -30,7 +30,8 @@ def test_accel_cache_roundtrip(tmp_path):
 
     def engine():
         return Engine(RenderOptions(skipping_type=SkippingType.DISTANCE),
-                      device="cpu", accel_cache_dir=str(tmp_path))
+                      renderer="pallas", device="cpu",
+                      accel_cache_dir=str(tmp_path))
 
     v1 = from_array(vol, VolumeOptions(**OPTS), block_size=4, device="cpu")
     assert engine().add_volume(v1).map_update_ms is not None
@@ -72,8 +73,8 @@ def test_cache_is_shared_with_the_jax_package(tmp_path, skipmode,
     assert tcache._key(tv, skipmode) == jcache._key(jv, skipmode)
     jeng = JEngine(JRO(skipping_type=skipmode), renderer="sweep",
                    accel_cache_dir=str(tmp_path))
-    teng = Engine(RenderOptions(skipping_type=skipmode), device="cpu",
-                  accel_cache_dir=str(tmp_path))
+    teng = Engine(RenderOptions(skipping_type=skipmode), renderer="pallas",
+                  device="cpu", accel_cache_dir=str(tmp_path))
     first, then = ((jeng, jv), (teng, tv)) if writer == "jax" else \
         ((teng, tv), (jeng, jv))
     assert first[0].add_volume(first[1]).map_update_ms is not None

@@ -40,7 +40,7 @@ def _outputs(seed, n):
 def test_render_blends_like_jax_engine(seed, monkeypatch):
     rng = np.random.default_rng(100 + seed)
     data = [rng.integers(0, 256, (8, 8, 8)).astype(np.uint8) for _ in range(2)]
-    jeng, teng = JEngine(), TEngine(device="cpu")
+    jeng, teng = JEngine(), TEngine(renderer="pallas", device="cpu")
     for d in data:
         jeng.add_volume(j_from_array(d))
         teng.add_volume(t_from_array(d, device="cpu"))

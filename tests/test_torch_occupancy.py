@@ -204,7 +204,7 @@ def test_engine_maps_for_inverted_tf_match_jax(skipmode,
     jeng = JEngine(JRO(skipping_type=SkippingType(skipmode)),
                    benchmark_mode=True, renderer="sweep")
     teng = TEngine(TRO(skipping_type=SkippingType(skipmode)),
-                   benchmark_mode=True, device="cpu")
+                   benchmark_mode=True, renderer="pallas", device="cpu")
     jv, tv = jfrom(vol, JVO(**kw), block_size=3), tfrom(vol, TVO(**kw),
                                                         block_size=3,
                                                         device="cpu")

@@ -224,7 +224,7 @@ def test_narrowed_plan_matches_jax_engine(jax_interpret, routes):
                    renderer="pallas")
     jv = j_from_array(data, JVolumeOptions(**kw), block_size=4)
     teng = TEngine(TRenderOptions(skipping_type=TSkip.DISTANCE),
-                   device="cpu")
+                   renderer="pallas", device="cpu")
     tv = t_from_array(data, TVolumeOptions(**kw), block_size=4, device="cpu")
     for v in (jv, tv):
         # The CLI's fit to the viewport.

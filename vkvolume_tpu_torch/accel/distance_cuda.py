@@ -2,9 +2,13 @@
 (csrc/distance.cu), the counterparts of
 ``vkvolume_tpu/accel/distance_pallas.py``'s ``scan_and_relax_multi`` and
 ``relax_z_direct_multi`` (the octant maps), ``scan_and_relax`` and
-``relax_z_direct`` with ``relax_dirs=(0,)`` (the isotropic map), and
-``relax_pallas`` / ``relax_z`` (one relaxation along z or y, an accel
-entry point that no engine path calls).
+``relax_z_direct`` with ``relax_dirs=(0,)`` (the isotropic map),
+``isotropic_distance_pallas`` / ``anisotropic_distance_pallas`` (here
+``*_cuda``) and ``relax_pallas`` / ``relax_z`` (here ``relax``: one
+relaxation along z or y, an accel entry point that no engine path calls).
+
+The kernels compute the fixed schedules the JAX callers use, so the
+wrappers take no scan or relax directions.
 
 A CPU tensor runs the plain versions in ``distance.py``; a CUDA tensor
 launches the kernels (or raises). ``LAUNCHES`` counts kernel launches per
@@ -107,18 +111,18 @@ def scan_and_relax_multi(occ_u8: torch.Tensor,
     return out
 
 
-def relax_z_direct_multi(xys: torch.Tensor) -> torch.Tensor:
+def relax_z_direct_multi(ds_u8: torch.Tensor) -> torch.Tensor:
     """K4: z-relax each of the (4, Z, Y, X) K3 maps along +z and -z;
     input-major, so output j is octant map j. (8, Z, Y, X) u8."""
-    if xys.device.type == "cpu":
-        return distance.relax_z_direct_multi(xys)
-    cuda_build.require_cuda("xys", xys, torch.uint8)
-    if xys.ndim != 4 or xys.shape[0] != 4:
-        raise ValueError(f"xys: expected (4, Z, Y, X), got {xys.shape}")
+    if ds_u8.device.type == "cpu":
+        return distance.relax_z_direct_multi(ds_u8)
+    cuda_build.require_cuda("ds_u8", ds_u8, torch.uint8)
+    if ds_u8.ndim != 4 or ds_u8.shape[0] != 4:
+        raise ValueError(f"ds_u8: expected (4, Z, Y, X), got {ds_u8.shape}")
     lib = cuda_build.load_kernels()
-    _, Z, Y, X = xys.shape
-    out = torch.empty((8, Z, Y, X), dtype=torch.uint8, device=xys.device)
-    cuda_build.check(lib.vkv_z_relax8(xys.data_ptr(), out.data_ptr(),
+    _, Z, Y, X = ds_u8.shape
+    out = torch.empty((8, Z, Y, X), dtype=torch.uint8, device=ds_u8.device)
+    cuda_build.check(lib.vkv_z_relax8(ds_u8.data_ptr(), out.data_ptr(),
                                       Z, Y, X, cuda_build.stream()),
                      "z_relax8")
     LAUNCHES["relax_z_direct_multi"] += 1

@@ -46,3 +46,16 @@ def gradient_map(volume_u8: torch.Tensor,
         * (0.25 / 255.0)
     g = (mag * grad_magnitude_modifier).clamp(0.0, 1.0)
     return torch.round(g * 255.0).to(torch.uint8)
+
+
+def gradient_at_points(volume_u8: torch.Tensor, pos_xyz: torch.Tensor,
+                       grad_magnitude_modifier: float = 1.0) -> torch.Tensor:
+    """The fragment shader's on-the-fly gradient at continuous texture
+    coordinates ``pos_xyz`` (..., 3), with linear taps
+    (shaders/volume_render.frag:91-97); ``render/sampling.py``'s
+    ``gradient_on_the_fly``, which the marcher calls when the precomputed
+    map is off (``--gradient_test``)."""
+    from ..render import sampling
+
+    return sampling.gradient_on_the_fly(volume_u8, pos_xyz,
+                                        grad_magnitude_modifier)

@@ -516,3 +516,25 @@ def _synthesize_impl(ds: BenchDataset, seed: int, scale: float) -> np.ndarray:
                   "occ_grad_pct": None if occ_g is None
                   else round(float(occ_g), 4)})
     return vol
+
+
+def write_reference_format(ds: BenchDataset, volume_u8: np.ndarray, path: str):
+    """Write ``volume_u8`` (D, H, W) in the reference's raw + ``.header``
+    format (README.md:58-68): the dataset's file type (``.uint16`` scaled
+    by 257, else u8), little endian, the header beside the data file."""
+    from ..io.header import Header, write_header
+
+    dtype = "uint8_t" if ds.filename.endswith("uint8") else "uint16_t"
+    d, h, w = volume_u8.shape
+    hd = Header(
+        extent=(w, h, d),
+        voxel_size=(0.001, 0.001, 0.001),
+        normalisation_range=(0.0, 255.0 if dtype == "uint8_t" else 65535.0),
+        dtype=dtype,
+        endianness="little",
+        rotation_axis=(1.0, 0.0, 0.0),
+        rotation_angle_deg=90.0,
+    )
+    scale = 1 if dtype == "uint8_t" else 257
+    (volume_u8.astype(np.uint16) * scale).astype(hd.np_dtype).tofile(path)
+    write_header(path + ".header", hd)

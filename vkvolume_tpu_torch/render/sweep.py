@@ -18,11 +18,16 @@ the JAX loop:
 * the per-slab ``lax.cond`` on the slab's occupancy becomes the list of
   occupied slabs, read on the host once per frame (one sync): a skipped
   slab changes no pixel;
-* the chunked ERT loop runs the list in chunks of 16 slabs over the rays
-  that can still take a sample in the chunk (covered, not saturated, the
-  chunk's planes inside their [s_lo, s_hi]), gathered before the chunk and
-  scattered back after it, and stops when no covered ray is left (ERT): a
-  ray left out of a chunk would take no sample in it.
+* the chunked ERT loop runs the list in chunks of ``chunk`` slabs (16 by
+  default) over the rays that can still take a sample in the chunk
+  (covered, not saturated, the chunk's planes inside their [s_lo, s_hi]),
+  gathered before the chunk and scattered back after it, and stops when
+  no covered ray is left (ERT): a ray left out of a chunk would take no
+  sample in it. Every output is independent of ``chunk``: a saturated
+  ray's ``done`` masks each later sample.
+
+``principal_axis`` and ``mixed_principal_signs`` are the host-side axis
+choice and mixed-sign test a caller of ``sweep`` makes on its rays.
 """
 
 from __future__ import annotations
@@ -36,10 +41,37 @@ from .ray_setup import (_SLICE_AXES, FrameUniforms, RaySetup, RenderOutput,
                         transpose_for_axis)
 from .sweep_slabs import n_steps_max
 
-__all__ = ["entry_exit_frame", "sweep", "transpose_for_axis"]
+__all__ = ["entry_exit_frame", "mixed_principal_signs", "principal_axis",
+           "sweep", "transpose_for_axis"]
 
 _INV255 = float(np.float32(1.0 / 255.0))
-_CHUNK = 16             # slabs per ERT check
+
+
+def principal_axis(rays: RaySetup) -> int:
+    """Dominant |component| of the mean direction of the valid rays, 0=x,
+    1=y, 2=z (host numpy, float32 as the JAX package computes it; z when no
+    ray is valid)."""
+    d = rays.ray_dir.detach().cpu().numpy()
+    valid = rays.valid.detach().cpu().numpy()
+    if valid.any():
+        mean = d[valid].mean(axis=0)
+    else:
+        mean = np.array([0.0, 0.0, 1.0])
+    return int(np.argmax(np.abs(mean)))
+
+
+def mixed_principal_signs(rays: RaySetup, p: int) -> bool:
+    """True when the valid rays disagree on the sign of their direction's
+    component ``p`` (host numpy): no one slab order composites them all
+    front to back, so such a frame (a wide-FOV camera inside the volume)
+    goes to the per-ray marcher. Components within 1e-6 of 0 cast no vote;
+    False when no ray votes."""
+    d = rays.ray_dir[..., p].detach().cpu().numpy()
+    valid = rays.valid.detach().cpu().numpy() & (np.abs(d) > 1e-6)
+    if not valid.any():
+        return False
+    dv = d[valid]
+    return bool((dv > 0).any() and (dv < 0).any())
 
 
 def entry_exit_frame(rays: RaySetup, test: Test) -> RenderOutput:
@@ -85,16 +117,22 @@ def sweep(vol_t: torch.Tensor, grad_t: torch.Tensor | None,
           occupancy_t: torch.Tensor | None, tf: TFParams, rays: RaySetup,
           uniforms: FrameUniforms, proj_view_model,
           tf_texture: torch.Tensor | None = None, *, p_axis: int = 2,
-          early_ray_termination: bool = True, test: Test = Test.NONE,
+          skipping: bool = True, early_ray_termination: bool = True,
+          test: Test = Test.NONE, chunk: int = 16,
           oversample: float = 1.0) -> RenderOutput:
     """One frame of the plane sweep. ``vol_t`` (Np, Sv, Su) u8 and
     ``grad_t`` (the same layout, or None) are principal-axis-major
     (``transpose_for_axis``), ``occupancy_t`` the (mp, mv, mu) skip map
-    (0 = occupied) in the same permutation, or None to sample every slab
-    (the JAX sweep's ``skipping=False``), ``rays`` a RaySetup
-    with entry and exit (``ray_setup.rays_from_dirs``), ``proj_view_model``
-    the host (4, 4) float32 matrix of the first-hit depth and ``tf_texture`` the
-    (256, 256, 4) u8 baked texture (None: the closed form)."""
+    (0 = occupied) in the same permutation, or None to sample every slab,
+    ``rays`` a RaySetup with entry and exit (``ray_setup.rays_from_dirs``),
+    ``proj_view_model`` the host (4, 4) float32 matrix of the first-hit
+    depth and ``tf_texture`` the (256, 256, 4) u8 baked texture (None: the
+    closed form). ``skipping=False`` samples every slab even when
+    ``occupancy_t`` is given: it is the same as ``occupancy_t=None``, the
+    one of the two the engine uses. ``chunk`` (>= 1) is the number of
+    slabs between ERT exit checks."""
+    if chunk < 1:
+        raise ValueError(f"chunk {chunk}: expected at least 1")
     f = torch.float32
     H, W = rays.valid.shape
     dev = vol_t.device
@@ -196,9 +234,9 @@ def sweep(vol_t: torch.Tensor, grad_t: torch.Tensor | None,
                           -1)
         return c, fs, ns + in_range.to(torch.int32), dn
 
-    order = _slab_order(n_slabs, Np, sgn, occupancy_t)
-    for c0 in range(0, len(order), _CHUNK):
-        slabs = order[c0:c0 + _CHUNK]
+    order = _slab_order(n_slabs, Np, sgn, occupancy_t if skipping else None)
+    for c0 in range(0, len(order), chunk):
+        slabs = order[c0:c0 + chunk]
         if early_ray_termination and not bool((~done).any()):
             break
         s_min = min(sl[1] for sl in slabs)

@@ -1,5 +1,5 @@
-from .transfer_function import (TFParams, bake_texture, get_alpha,
+from .transfer_function import (TFParams, bake_texture, get_alpha, get_color,
                                 sample_texture, tf_params)
 
-__all__ = ["TFParams", "bake_texture", "get_alpha", "sample_texture",
-           "tf_params"]
+__all__ = ["TFParams", "bake_texture", "get_alpha", "get_color",
+           "sample_texture", "tf_params"]

@@ -77,6 +77,14 @@ def get_alpha(tf: TFParams, intensity: torch.Tensor,
     return alpha_i * alpha_g
 
 
+def get_color(tf: TFParams, intensity: torch.Tensor,
+              gradient: torch.Tensor | None) -> torch.Tensor:
+    """The closed-form colour ``vec4(alpha)``: ``get_alpha`` in all four
+    channels, (..., 4)."""
+    a = get_alpha(tf, intensity, gradient)
+    return torch.stack((a, a, a, a), -1)
+
+
 def bake_texture(
     *,
     intensity_min: float,
