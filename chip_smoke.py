@@ -155,6 +155,22 @@ full-scale synthetic stag beetle (494x832x832 u8) into bench.py's engine
      each case's ms (median of 3 synced calls of all its ranks) and its
      collective's bytes and ms: n ranks time-sharing one card, not a
      scaling result;
+ 12. the measurement protocols (``vkvolume_tpu_torch.bench``), cut, through
+     their own functions, on the full-scale beetle at bench.py's pose:
+     (a) ``parity``: beetle and beetle-grad at skipmodes 0-3, 1920x1080,
+         against the marcher oracle (skipmode 2; no sweep or warp
+         launch): the four default frames equal bit for bit, each
+         skipmode's TF edit running its distance kernels and no other
+         (none at 0-1), the edge-repair frame at skipmode 3 lowering both
+         shares beyond 8/255 (of the image, of the covered pixels),
+         printed beside the JAX package's record;
+     (b) ``session``: PROTO_EDITS slider edits and the extras; each undo
+         and the ESS toggle (skipmode 3) give the frame before back bit
+         for bit, the other edits change it;
+     (c) ``orbit``: PROTO_ORBIT_FRAMES frames a repetition, the JSON line
+         and ``renderer_counts``;
+     (d) ``ess_ratio``: beetle at skipmodes 0 and 3, PROTO_ESS_FRAMES
+         frames a repetition, with the stage split;
   7. prints the kernel table (each kernel's time, its plain version's,
      the least time the card could take for the same work, and a PyTorch
      call's where one computes the same function; a kernel's time is the
@@ -227,11 +243,12 @@ MARCH_COLOR_TOL = 1e-4
 # another order on the card, so the fields differ in their last places,
 # amplified where the ray's entry cancels against the camera's position.
 RAYS_FACTOR = 2.0
-GAP_8 = 8.0 / 255.0     # the parity records' per-pixel threshold
-# The JAX package's own sweep-vs-marcher gap on beetle-grad, % of covered
-# pixels beyond 8/255 (docs/parity_r5.json; ROADMAP C): a record, not a
-# gate.
+# The JAX package's own sweep-vs-marcher gap on beetle-grad at bench.py's
+# pose, 1920x1080, full scale (docs/parity_r5.json; ROADMAP C): pixels
+# beyond 8/255, % of the whole image (the record's unit) and % of the
+# oracle's covered pixels (its covered_px). A record, not a gate.
 JAX_BEETLE_GRAD_GAP = 0.38
+JAX_BEETLE_GRAD_GAP_COVERED = 3.857
 # Phase 10: an inverted intensity range with a gradient term on bench.py's
 # engine (imin, imax, gmin, gmax); the CLI-frame pose whose engine plan
 # takes another axis than the host analysis (render_frame then plans from
@@ -1828,6 +1845,7 @@ def phase_oracle(out_dir):
     numbers for the summary."""
     import torch
     from vkvolume_tpu_torch import cli
+    from vkvolume_tpu_torch.bench import parity
     from vkvolume_tpu_torch.bench.datasets import DATASETS, synthesize
     from vkvolume_tpu_torch.bench.harness import make_engine
     from vkvolume_tpu_torch.camera import orbit_camera
@@ -1959,19 +1977,17 @@ def phase_oracle(out_dir):
     keep = torch.ones(H * W, dtype=torch.bool, device=rep.color.device)
     keep[idx] = False
     assert torch.equal(c_rep[keep], plain.color.reshape(-1, 4)[keep])
-    covered = (ref.color[..., 3] > 0) | (plain.color[..., 3] > 0)
-
-    def gap(color):
-        d = (color - ref.color).abs().amax(-1) > GAP_8
-        return 100.0 * float(d[covered].float().mean())
-
-    g_plain, g_rep = gap(plain.color), gap(rep.color)
+    g_plain, g_rep = (
+        parity.parity_row(c, ref.color)["pct_covered_gt_8_of_255"]
+        for c in (plain.color, rep.color))
     log(f"{ph}: suspects n_found={n_found} K={K}; repaired pixels equal "
         f"to the marcher frame, depth within {d_err:.3g}; covered pixels "
         f"beyond 8/255 of the marcher frame: {g_plain:.4f} % without "
         f"repair, {g_rep:.4f} % with (the JAX package's beetle-grad "
-        f"sweep-vs-marcher record: {JAX_BEETLE_GRAD_GAP} %, a record, not a"
-        f" gate)")
+        f"sweep-vs-marcher record at bench.py's pose, 1920x1080: "
+        f"{JAX_BEETLE_GRAD_GAP} % of the image, "
+        f"{JAX_BEETLE_GRAD_GAP_COVERED} % of covered pixels; a record, not "
+        f"a gate)")
     assert g_rep < g_plain, f"{ph}: the repair did not close the gap"
     v = eng.volumes[0]
     sweep_ms = synced_ms(lambda: eng.render(cam, W, H), MARCH_REPS)
@@ -2844,6 +2860,155 @@ def phase_multi(tmp_dir):
     return res, launches
 
 
+# Phase 12: cuts of the measurement protocols (vkvolume_tpu_torch.bench:
+# parity, session, orbit, ess_ratio) through their own functions, on the
+# full-scale beetle at bench.py's pose.
+PROTO_PARITY_KEYS = ("beetle", "beetle-grad")
+PROTO_EDITS = 4         # slider edits of the session (the protocol: 12)
+PROTO_ORBIT_FRAMES = 5  # frames a repetition of the orbit (10)
+PROTO_ESS_FRAMES = 2    # frames a repetition of the ESS ratio (10)
+# The JAX package's parity rows at 1920x1080, scale 1, every skipmode
+# alike (docs/parity_r5.json): % of the image beyond 8/255 by default and
+# with edge repair, and the oracle's covered pixels. A record, not a gate.
+JAX_PARITY_R5 = {"beetle": (0.08714, 0.00077, 261030),
+                 "beetle-grad": (0.38301, 0.0001, 205922)}
+# The distance kernels each skipmode's TF edit runs.
+SKIPMODE_KERNELS = {0: (), 1: (), 2: ("K5", "K4 two-sided"),
+                    3: ("K3", "K4")}
+DISTANCE_KERNELS = ("K3", "K4", "K4 two-sided", "K5", "K6")
+
+
+def phase_protocols(tmp_dir):
+    """(a) the parity matrix's beetle rows, (b) the interactive session,
+    (c) the orbit, (d) the ESS ratio; returns the numbers for the
+    summary and each protocol's kernel launches."""
+    import torch
+    from vkvolume_tpu_torch.bench import ess_ratio, orbit, parity, session
+    from vkvolume_tpu_torch.bench.datasets import DATASETS, synthesize
+
+    res = {}
+    counts = {}
+
+    def count(path, launches):
+        total = counts.setdefault(path, dict.fromkeys(launches, 0))
+        for k, n in launches.items():
+            total[k] += n
+    W, H = WIDTH, HEIGHT
+    beetle = synthesize(DATASETS["beetle"], seed=0)   # phase 1's, cached
+    sweeps_and_warps = ("K1", "K1 texture", "K7", "K2", "K8")
+    for key in PROTO_PARITY_KEYS:
+        ph = f"phase 12a {key}"
+        t0 = time.perf_counter()
+        reset_launches()
+        ref = parity.render_config("marcher", key, parity.ORACLE_SKIPMODE,
+                                   W, H, 1.0, beetle, device="cuda")
+        torch.cuda.synchronize()
+        assert ref.renderer == "marcher", ref.renderer
+        launches = read_launches()
+        check_none(launches, sweeps_and_warps, f"{ph} oracle")
+        count("parity", launches)
+        images, rows = [], {}
+        for sm in (0, 1, 2, 3):
+            reset_launches()
+            got = parity.render_config("pallas", key, sm, W, H, 1.0, beetle,
+                                       device="cuda", frames=0)
+            torch.cuda.synchronize()
+            launches = read_launches()
+            assert got.renderer == "pallas", f"{ph} skipmode {sm}"
+            assert launches["K1"] > 0 and launches["K1 walk"] > 0, \
+                f"{ph} skipmode {sm}: the sweep never ran ({launches})"
+            check_none(launches, [k for k in DISTANCE_KERNELS
+                                  if k not in SKIPMODE_KERNELS[sm]],
+                       f"{ph} skipmode {sm}")
+            assert all(launches[k] > 0 for k in SKIPMODE_KERNELS[sm]), \
+                f"{ph} skipmode {sm}: its distance kernels never ran"
+            count("parity", launches)
+            images.append(got.color)
+            rows[sm] = parity.parity_row(got.color, ref.color)
+        for sm in (1, 2, 3):
+            assert torch.equal(images[sm], images[0]), \
+                f"{ph}: the skipmode-{sm} frame differs from skipmode 0's"
+        reset_launches()
+        rep = parity.render_config("pallas", key, 3, W, H, 1.0, beetle,
+                                   edge_repair=True, device="cuda",
+                                   frames=0)
+        count("parity", read_launches())
+        repaired = parity.parity_row(rep.color, ref.color)
+        row = rows[3]
+        for share in ("pct_pixels_gt_8_of_255", "pct_covered_gt_8_of_255"):
+            assert repaired[share] < row[share], \
+                f"{ph}: the repair did not lower {share}"
+        j_img, j_rep, j_cov = JAX_PARITY_R5[key]
+        n_px = W * H
+        res[key] = dict(row=row, repaired=repaired, repair_px=rep.repair_px,
+                        s=time.perf_counter() - t0)
+        log(f"{ph}: default frames of skipmodes 0-3 equal bit for bit; "
+            f"launches per skipmode as its TF edit needs; beyond 8/255 of "
+            f"the oracle: {row['pct_pixels_gt_8_of_255']:.5f} % of the "
+            f"image, {row['pct_covered_gt_8_of_255']:.4f} % of covered "
+            f"pixels ({row['px_gt_8_of_255']} of "
+            f"{row['covered_either_px']}); with edge repair (suspects, "
+            f"budget {rep.repair_px}) {repaired['pct_pixels_gt_8_of_255']:.5f}"
+            f" % and {repaired['pct_covered_gt_8_of_255']:.4f} %; JAX r5 "
+            f"(a record, not a gate): {j_img} % and "
+            f"{j_img * n_px / j_cov:.4f} % of its covered "
+            f"pixels, repaired {j_rep} %; "
+            f"{res[key]['s']:.1f} s")
+        del ref, images, got, rep
+        torch.cuda.empty_cache()
+    del beetle
+
+    # (b) The session: the slider edits and every extra, each undo giving
+    # the frame back bit for bit, and the ESS toggle too (skipping is
+    # exact).
+    ph = "phase 12b session"
+    reset_launches()
+    sess = session.run(n_edits=PROTO_EDITS, out=os.path.join(
+        tmp_dir, "interactive.json"), device="cuda",
+        log=lambda m: log(f"{ph}: {m}"))
+    launches = read_launches()
+    count("session", launches)
+    log(f"{ph}: launches {launches}")
+    assert all(launches[k] > 0 for k in ("K1", "K5", "K4 two-sided", "K3",
+                                         "K4")), f"{ph}: {launches}"
+    for e in sess["extra_edits"]:
+        same = e["edit"] in ("sampling=1.0", "translate-back", "spin0",
+                             "skipmode=2", "skipmode=3")
+        assert e["equals_before"] is same, f"{ph}: {e}"
+    res["session"] = sess
+    torch.cuda.empty_cache()
+
+    # (c) The orbit: every pose fresh.
+    ph = "phase 12c orbit"
+    reset_launches()
+    line = orbit.run(frames=PROTO_ORBIT_FRAMES,
+                     out=os.path.join(tmp_dir, "orbit.json"), device="cuda")
+    count("orbit", read_launches())
+    log(f"{ph}: launches {counts['orbit']}")
+    log(f"{ph}: {json.dumps(line)}")
+    log(f"{ph}: renderer_counts {line['renderer_counts']}")
+    n = 1 + 2 * 5 * PROTO_ORBIT_FRAMES      # warm, each pose twice
+    assert sum(line["renderer_counts"][k] for k in
+               ("pallas", "sweep", "marcher")) == n, line["renderer_counts"]
+    res["orbit"] = line
+    torch.cuda.empty_cache()
+
+    # (d) The ESS ratio: skipmodes 0 and 3 on the beetle.
+    ph = "phase 12d ESS ratio"
+    reset_launches()
+    ess = ess_ratio.run(("beetle",), (0, 3), frames=PROTO_ESS_FRAMES,
+                        out=os.path.join(tmp_dir, "ess_ratio.json"),
+                        device="cuda", log=lambda m: log(f"{ph}: {m}"))
+    count("ess_ratio", read_launches())
+    log(f"{ph}: launches {counts['ess_ratio']}")
+    for tag in ("beetle:0", "beetle:3"):
+        assert set(ess[tag]["stages"]) == {"plan_ms", "sweep_ms", "warp_ms"}
+    res["ess"] = ess
+    torch.cuda.empty_cache()
+    log(f"phase 12a: launches {counts['parity']}")
+    return res, counts
+
+
 def main() -> int:
     import torch
 
@@ -2901,6 +3066,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp_dir:
         multi, multi_launches = phase_multi(tmp_dir)
     log(f"phase 11: {time.perf_counter() - t11:.1f} s")
+    t12 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp_dir:
+        proto, proto_launches = phase_protocols(tmp_dir)
+    log(f"phase 12: {time.perf_counter() - t12:.1f} s")
     for more in (cli_rows, accel_rows, orbit_rows, tex_rows, matrix_rows):
         rows.update(more)
     assert "jax" not in sys.modules
@@ -3007,7 +3176,10 @@ def main() -> int:
                             for path, counts in api_launches.items()},
                         "launches_phase11": {
                             path: counts[counter]
-                            for path, counts in multi_launches.items()}})
+                            for path, counts in multi_launches.items()},
+                        "launches_phase12": {
+                            path: counts[counter]
+                            for path, counts in proto_launches.items()}})
     log(f"frame_ms_median {frame_ms:.4f} map_update_ms {map_ms:.4f} "
         f"({WIDTH}x{HEIGHT}, skipmode 3)")
     log(f"cli_frame_ms_median {cli_ms:.4f} cli_map_update_ms {cli_map_ms:.4f} "
@@ -3078,6 +3250,25 @@ def main() -> int:
             + (f", single-device {r['single_ms']:.4f} ms"
                if "single_ms" in r else "")
             + f"; collective {nbytes} bytes {cms:.4f} ms")
+    for key in PROTO_PARITY_KEYS:
+        r = proto[key]
+        log(f"parity {key} (1920x1080, skipmodes 0-3 equal): beyond 8/255 "
+            f"{r['row']['pct_pixels_gt_8_of_255']:.5f} % of the image, "
+            f"{r['row']['pct_covered_gt_8_of_255']:.4f} % of covered pixels;"
+            f" with edge repair {r['repaired']['pct_pixels_gt_8_of_255']:.5f}"
+            f" % and {r['repaired']['pct_covered_gt_8_of_255']:.4f} %")
+    sess = proto["session"]
+    log(f"session ({PROTO_EDITS} edits): total_ms median "
+        f"{sess['total_ms_median']:.2f} max {sess['total_ms_max']:.2f}, "
+        f"pipelined {sess['pipelined_ms_per_edit']:.2f} ms/edit; extras "
+        + ", ".join(f"{e['edit']} {e['total_ms']:.2f} ms"
+                    for e in sess["extra_edits"]))
+    line = proto["orbit"]
+    log(f"orbit ({PROTO_ORBIT_FRAMES} frames a rep): {line['value']:.4f} "
+        f"ms/frame, renderer_counts {line['renderer_counts']}")
+    for tag in ("beetle:0", "beetle:3"):
+        r = proto["ess"][tag]
+        log(f"ess {tag}: {r['frame_ms']:.4f} ms/frame, stages {r['stages']}")
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -148,6 +148,10 @@ def test_port_never_imports_jax():
             "vkvolume_tpu_torch.render.sampling, "
             "vkvolume_tpu_torch.render.forward, "
             "vkvolume_tpu_torch.bench.profile_frame, "
+            "vkvolume_tpu_torch.bench.parity, "
+            "vkvolume_tpu_torch.bench.ess_ratio, "
+            "vkvolume_tpu_torch.bench.orbit, "
+            "vkvolume_tpu_torch.bench.session, "
             "vkvolume_tpu_torch.interop, vkvolume_tpu_torch.cli, "
             "vkvolume_tpu_torch.io, vkvolume_tpu_torch.io.native, "
             "vkvolume_tpu_torch.utils.image, vkvolume_tpu_torch.viewer, "

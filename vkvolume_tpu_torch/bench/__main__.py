@@ -37,7 +37,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -54,21 +53,6 @@ def kernel_launches() -> dict:
     return {k: n for t in (distance_cuda.LAUNCHES, sweep_bricks.LAUNCHES,
                            sweep_slabs.LAUNCHES, warp_cuda.LAUNCHES)
             for k, n in t.items()}
-
-
-def card(device) -> tuple:
-    """(name, power limit) of the card ``device`` names, as ``nvidia-smi``
-    gives them; ("cpu", None) on the CPU."""
-    import torch
-
-    if device.type != "cuda":
-        return "cpu", None
-    index = device.index if device.index is not None else 0
-    out = subprocess.run(
-        ["nvidia-smi", "-i", str(index), "--query-gpu=power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip()
-    return torch.cuda.get_device_name(index), out
 
 
 def main(argv=None) -> int:
@@ -92,7 +76,7 @@ def main(argv=None) -> int:
 
     from ..engine.volume import resolve_device
     from ..options import Test
-    from .harness import benchmark_camera, run_config, stage_breakdown
+    from .harness import benchmark_camera, card, run_config, stage_breakdown
 
     t_start = time.time()
     device = resolve_device(args.device)

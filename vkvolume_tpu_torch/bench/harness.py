@@ -23,8 +23,10 @@ from __future__ import annotations
 
 import csv
 import dataclasses
+import json
 import os
 import statistics
+import subprocess
 import time
 
 import numpy as np
@@ -37,6 +39,28 @@ from .datasets import DATASETS, synthesize
 
 CSV_COLUMNS = ["image", "skipmode", "blocksize", "occupancy", "framerate",
                "update", "imin", "imax", "gmin", "gmax"]
+
+
+def card(device) -> tuple:
+    """(name, power limit) of the card ``device`` names, as ``nvidia-smi``
+    gives them; ("cpu", None) on the CPU."""
+    import torch
+
+    if device.type != "cuda":
+        return "cpu", None
+    index = device.index if device.index is not None else 0
+    out = subprocess.run(
+        ["nvidia-smi", "-i", str(index), "--query-gpu=power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    return torch.cuda.get_device_name(index), out
+
+
+def save_json(path: str, obj) -> None:
+    """Write ``obj`` to ``path`` as indented JSON, making its directory."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w") as fh:
+        json.dump(obj, fh, indent=1)
 
 
 def benchmark_camera(aspect: float, azimuth=30.0, elevation=20.0):
