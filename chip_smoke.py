@@ -93,8 +93,10 @@ full-scale synthetic stag beetle (494x832x832 u8) into bench.py's engine
      (a) ``python -m vkvolume_tpu_torch.bench`` with its defaults (bench.py's
          frame and 5 x 20 protocol) in a subprocess whose ``jax`` and
          ``vkvolume_tpu`` refuse to import: prints its JSON line and checks
-         its keys, that every frame went through the w-grid frame, the
-         stage split and the kernels it launched;
+         its keys, that every frame of both fits (aspect and stretch) went
+         through the w-grid frame, that ``vs_baseline`` is the reference's
+         frame time over ``frame_ms_stretch_equiv``, the stage split and
+         the kernels it launched; prints the stretch / aspect ratio;
      (b) ``run_config`` at the reference protocol's 1200x1200 in benchmark
          mode (ERT off, sample counts) on the full-scale beetle, skipmodes
          0-3 at block size 4 and skipmode 3 at 2 and 6, each cut to
@@ -171,6 +173,14 @@ full-scale synthetic stag beetle (494x832x832 u8) into bench.py's engine
          and ``renderer_counts``;
      (d) ``ess_ratio``: beetle at skipmodes 0 and 3, PROTO_ESS_FRAMES
          frames a repetition, with the stage split;
+     (e) ``sample_count``: beetle at skipmode 2, 1920x1080, ERT off: the
+         w-grid frame through K1 (walk and compositing) and K2, the
+         oracle through none of K1, K1 texture, K7, K2 or K8; every
+         statistic finite and > 0 (the w-grid frame's median >= 0);
+     (f) ``warp_vs_quadrature``: beetle-grad at skipmode 2, 1920x1080:
+         the XLA sweep through no sweep or warp kernel, the w-grid
+         frame's pixels beyond 8/255 of the oracle equal to
+         docs/h100/parity.json's beetle-grad:2 row;
   7. prints the kernel table (each kernel's time, its plain version's,
      the least time the card could take for the same work, and a PyTorch
      call's where one computes the same function; a kernel's time is the
@@ -193,6 +203,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -228,6 +239,10 @@ MATRIX_FRAMES, MATRIX_REPS = 5, 2
 MATRIX_RUNS = ((0, 4), (1, 4), (2, 4), (3, 4), (3, 2), (3, 6))  # beetle
 SPECIMENS = (("present", 3, 4), ("snake-grad", 2, 4))   # key, skipmode, b
 SPECIMEN_SCALE = 1.0
+# The reference's stag-beetle fps at 1200x1200, skipmode 3, its stretch
+# fit (BASELINE.md; scripts/benchmark_results_3.csv:14): the entry's
+# vs_baseline is its pixel-scaled frame time over the stretch frame's.
+ENTRY_REFERENCE_FPS = 672.3
 # Phase 9: the per-ray marcher, edge repair and the scene pass.
 INSIDE = dict(radius=10.0, azimuth_deg=45.0, elevation_deg=35.0,
               fovy_deg=120.0)   # a wide-FOV camera inside the volume
@@ -1549,7 +1564,9 @@ def phase_entry() -> dict:
     """(a) ``python -m vkvolume_tpu_torch.bench`` with its defaults, in a
     process whose ``jax`` and ``vkvolume_tpu`` refuse to import: its one
     JSON line, with bench.py's keys, every frame through the w-grid
-    frame and the stage split filled."""
+    frame and the stage split filled; ``vs_baseline`` over the stretch
+    fit's median, measured in the same run, every stretch frame through
+    the w-grid frame too."""
     repo = os.path.dirname(os.path.abspath(__file__))
     with tempfile.TemporaryDirectory() as run_dir:
         for name in ("jax", "vkvolume_tpu"):
@@ -1579,9 +1596,16 @@ def phase_entry() -> dict:
             "rep_spread", "renderer_used", "renderer_counts", "protocol",
             "stages", "device", "power_limit"}
     assert keys <= set(r), keys - set(r)
-    assert "frame_ms_stretch_equiv" not in r
-    assert {k for k, n in r["renderer_counts"].items() if n} == {"pallas"}, \
-        r["renderer_counts"]
+    assert r["frame_ms_stretch_equiv"] > 0, r["frame_ms_stretch_equiv"]
+    ref_ms = 1000.0 / (ENTRY_REFERENCE_FPS / (WIDTH * HEIGHT / 1200.0 ** 2))
+    assert abs(r["vs_baseline"] * r["frame_ms_stretch_equiv"] - ref_ms) \
+        <= 1e-9 * ref_ms, (r["vs_baseline"], r["frame_ms_stretch_equiv"])
+    for counts in ("renderer_counts", "stretch_renderer_counts"):
+        assert {k for k, n in r[counts].items() if n} == {"pallas"}, \
+            (counts, r[counts])
+    log(f"phase 8a: stretch / aspect ms/frame "
+        f"{r['frame_ms_stretch_equiv']:.4f} / {r['value']:.4f} = "
+        f"{r['frame_ms_stretch_equiv'] / r['value']:.4f}")
     assert set(r["stages"]) == {"plan_ms", "sweep_ms", "warp_ms"}
     assert all(r["stages"][k] > 0 for k in r["stages"])
     assert r["protocol"] == "5x20" and r["scale"] == 1.0
@@ -2880,10 +2904,13 @@ DISTANCE_KERNELS = ("K3", "K4", "K4 two-sided", "K5", "K6")
 
 def phase_protocols(tmp_dir):
     """(a) the parity matrix's beetle rows, (b) the interactive session,
-    (c) the orbit, (d) the ESS ratio; returns the numbers for the
-    summary and each protocol's kernel launches."""
+    (c) the orbit, (d) the ESS ratio, (e) the per-ray sample counts, (f)
+    warp against quadrature; returns the numbers for the summary and each
+    protocol's kernel launches."""
     import torch
-    from vkvolume_tpu_torch.bench import ess_ratio, orbit, parity, session
+    from vkvolume_tpu_torch.bench import (ess_ratio, orbit, parity,
+                                          sample_count, session,
+                                          warp_vs_quadrature)
     from vkvolume_tpu_torch.bench.datasets import DATASETS, synthesize
 
     res = {}
@@ -3004,6 +3031,92 @@ def phase_protocols(tmp_dir):
     for tag in ("beetle:0", "beetle:3"):
         assert set(ess[tag]["stages"]) == {"plan_ms", "sweep_ms", "warp_ms"}
     res["ess"] = ess
+    torch.cuda.empty_cache()
+
+    # (e) The per-ray sample counts: the beetle at skipmode 2, each frame
+    # (w-grid, then the oracle) with its own launches.
+    ph = "phase 12e sample count"
+    t0 = time.perf_counter()
+    frame_launches = {}
+    real_count = sample_count.count_frame
+
+    def counted(renderer, *a, **k):
+        reset_launches()
+        got = real_count(renderer, *a, **k)
+        frame_launches[renderer] = read_launches()
+        return got
+
+    sample_count.count_frame = counted
+    try:
+        sc = sample_count.run(("beetle:2",), width=W, height=H, scale=1.0,
+                              out=os.path.join(tmp_dir, "sample_count.json"),
+                              device="cuda", log=lambda m: None)["beetle:2"]
+    finally:
+        sample_count.count_frame = real_count
+    for launches in frame_launches.values():
+        count("sample_count", launches)
+    log(f"{ph}: launches {frame_launches}")
+    w_grid = frame_launches["pallas"]
+    assert all(w_grid[k] > 0 for k in ("K1", "K1 walk", "K2")), \
+        f"{ph}: the w-grid frame ran {w_grid}"
+    check_none(frame_launches["marcher"], sweeps_and_warps, f"{ph} oracle")
+    assert (sc["pallas"]["renderer_used"], sc["marcher"]["renderer_used"]) \
+        == ("pallas", "marcher"), sc
+    # Every statistic is finite and > 0 but the w-grid frame's median,
+    # which may be 0: the brick sweep takes no sample on a ray that
+    # crosses only empty bricks, where the marcher counts its distance
+    # reads (docs/h100/sample_count.json: 0 at beetle, snake).
+    for block in ("pallas", "marcher", "ratio"):
+        for k, v in sc[block].items():
+            if k != "renderer_used":
+                ok = v >= 0 if (block, k) == ("pallas", "p50") else v > 0
+                assert math.isfinite(v) and ok, f"{ph}: {block} {k} = {v}"
+    res["sample_count"] = dict(sc, s=time.perf_counter() - t0)
+    log(f"{ph}: {json.dumps(sc)}; {res['sample_count']['s']:.1f} s")
+    torch.cuda.empty_cache()
+
+    # (f) Warp against quadrature: beetle-grad at skipmode 2, the XLA
+    # sweep and the w-grid frame against the oracle; the w-grid column
+    # equal to the parity record's row.
+    ph = "phase 12f warp vs quadrature"
+    t0 = time.perf_counter()
+    frame_launches = {}
+    real_render = parity.render_config
+
+    def rendered(renderer, *a, **k):
+        reset_launches()
+        got = real_render(renderer, *a, **k)
+        torch.cuda.synchronize()
+        frame_launches[renderer] = read_launches()
+        return got
+
+    record = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          parity.DEFAULT_OUT)
+    parity.render_config = rendered
+    try:
+        wvq = warp_vs_quadrature.run(
+            ("beetle-grad:2",), width=W, height=H, scale=1.0,
+            parity_record=record,
+            out=os.path.join(tmp_dir, "warp_vs_quadrature.json"),
+            device="cuda", log=lambda m: None)["beetle-grad:2"]
+    finally:
+        parity.render_config = real_render
+    for launches in frame_launches.values():
+        count("warp_vs_quadrature", launches)
+    log(f"{ph}: launches {frame_launches}")
+    with open(record) as fh:
+        want = json.load(fh)["beetle-grad:2"]["px_gt_8_of_255"]
+    got = wvq["pallas"]["parity"]["px_gt_8_of_255"]
+    assert wvq["matches_parity_record"] is True and got == want, \
+        f"{ph}: the w-grid frame has {got} pixels beyond 8/255, the " \
+        f"parity record {want}"
+    assert wvq["sweep"]["renderer_used"] == "sweep", wvq["sweep"]
+    check_none(frame_launches["sweep"], sweeps_and_warps, f"{ph} XLA sweep")
+    check_none(frame_launches["marcher"], sweeps_and_warps, f"{ph} oracle")
+    assert frame_launches["pallas"]["K1"] > 0 and \
+        frame_launches["pallas"]["K2"] > 0, frame_launches["pallas"]
+    res["wvq"] = dict(wvq, s=time.perf_counter() - t0)
+    log(f"{ph}: {json.dumps(wvq)}; {res['wvq']['s']:.1f} s")
     torch.cuda.empty_cache()
     log(f"phase 12a: launches {counts['parity']}")
     return res, counts
@@ -3269,6 +3382,16 @@ def main() -> int:
     for tag in ("beetle:0", "beetle:3"):
         r = proto["ess"][tag]
         log(f"ess {tag}: {r['frame_ms']:.4f} ms/frame, stages {r['stages']}")
+    sc = proto["sample_count"]
+    log(f"sample count beetle:2 (1920x1080, ERT off): per covered pixel "
+        f"w-grid {sc['pallas']['mean_per_covered']:.3f}, marcher "
+        f"{sc['marcher']['mean_per_covered']:.3f}; ratio total "
+        f"{sc['ratio']['total']:.4f}, p50 {sc['ratio']['p50']:.4f}")
+    wvq = proto["wvq"]
+    log(f"warp vs quadrature beetle-grad:2 (1920x1080): beyond 8/255 of the "
+        f"oracle's covered pixels, XLA sweep "
+        f"{wvq['sweep']['pct_covered']:.4f} %, w-grid frame "
+        f"{wvq['pallas']['pct_covered']:.4f} % (parity record matched)")
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -206,31 +206,58 @@ def test_profiler_trace_writes_a_chrome_trace(tmp_path):
         pass
 
 
+# Runs the entry as ``python -m`` does, recording the ``fit`` of each
+# ``run_config`` call on standard error.
+ENTRY_RUNNER = """
+import atexit, json, runpy, sys
+from vkvolume_tpu_torch.bench import harness
+fits = []
+real = harness.run_config
+def run_config(*a, **k):
+    fits.append(k["fit"])
+    return real(*a, **k)
+harness.run_config = run_config
+atexit.register(lambda: print("fits=" + json.dumps(fits), file=sys.stderr))
+sys.argv = ["vkvolume_tpu_torch.bench", "--device", "cpu"]
+runpy.run_module("vkvolume_tpu_torch.bench", run_name="__main__",
+                 alter_sys=True)
+"""
+
+
 def test_bench_entry_prints_one_line_without_jax(tmp_path):
     """``python -m vkvolume_tpu_torch.bench --device cpu`` prints one JSON
     line with bench.py's keys, with ``jax`` and the JAX package shadowed
-    by modules that refuse to import."""
+    by modules that refuse to import. It runs the aspect fit and the
+    stretch fit, and ``vs_baseline`` divides by the stretch fit's median,
+    ``frame_ms_stretch_equiv``."""
     for name in ("jax", "vkvolume_tpu"):
         (tmp_path / name).mkdir()
         (tmp_path / name / "__init__.py").write_text(
             f"raise ImportError('{name} imported')\n")
+    (tmp_path / "entry.py").write_text(ENTRY_RUNNER)
     # One ATen thread, as in this module (tests/torch_threads.py): the
     # suite's workers share a few cores.
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1",
                BENCH_SCALE="0.05", BENCH_WIDTH="256", BENCH_HEIGHT="256",
                BENCH_FRAMES="1", BENCH_REPS="1")
-    out = subprocess.run(
-        [sys.executable, "-m", "vkvolume_tpu_torch.bench", "--device", "cpu"],
-        cwd=tmp_path, env=env, check=True, capture_output=True,
-        text=True).stdout
-    lines = out.strip().splitlines()
+    proc = subprocess.run(
+        [sys.executable, "entry.py"], cwd=tmp_path, env=env, check=True,
+        capture_output=True, text=True)
+    fits = [json.loads(line[5:]) for line in proc.stderr.splitlines()
+            if line.startswith("fits=")]
+    assert fits == [["aspect", "stretch"]]
+    lines = proc.stdout.strip().splitlines()
     assert len(lines) == 1
     r = json.loads(lines[0])
     keys = {"metric", "value", "unit", "vs_baseline", "fps", "map_update_ms",
             "occupancy_pct", "frames", "scale", "wall_s", "rep_ms",
             "rep_spread", "renderer_used", "renderer_counts", "protocol",
-            "stages", "device", "power_limit"}
-    assert keys <= set(r) and "frame_ms_stretch_equiv" not in r
+            "stages", "device", "power_limit", "frame_ms_stretch_equiv",
+            "stretch_renderer_counts"}
+    assert keys <= set(r)
+    assert r["frame_ms_stretch_equiv"] > 0 and r["fit"] == "aspect"
+    assert {k for k, n in r["stretch_renderer_counts"].items() if n} == \
+        {"pallas"}
     assert r["unit"] == "ms/frame" and r["protocol"] == "1x1"
     assert r["renderer_used"] == "pallas"
     assert {k for k, n in r["renderer_counts"].items() if n} == {"pallas"}
@@ -239,7 +266,8 @@ def test_bench_entry_prints_one_line_without_jax(tmp_path):
     assert r["fps"] == pytest.approx(1000.0 / r["value"])
     # The reference's skipmode-3 672.3 fps at 1200x1200, pixel-scaled.
     ref_ms = 1000.0 / (672.3 / (256 * 256 / 1200.0 ** 2))
-    assert r["vs_baseline"] == pytest.approx(ref_ms / r["value"])
+    assert r["vs_baseline"] == pytest.approx(
+        ref_ms / r["frame_ms_stretch_equiv"])
 
 
 def test_bench_entry_refuses_without_a_card():

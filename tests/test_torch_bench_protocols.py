@@ -15,7 +15,9 @@ import torch
 from vkvolume_tpu.bench import harness as jh
 from vkvolume_tpu.options import Test as JTest
 from vkvolume_tpu.render import sweep_pallas
-from vkvolume_tpu_torch.bench import ess_ratio, orbit, parity, session
+from vkvolume_tpu_torch.bench import (ess_ratio, orbit, parity,
+                                      sample_count, session,
+                                      warp_vs_quadrature)
 from vkvolume_tpu_torch.bench import harness as th
 from vkvolume_tpu_torch.bench.datasets import DATASETS, synthesize
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
@@ -331,7 +333,8 @@ def test_session_main_writes_the_core_result(tmp_path, capsys):
                          "renderer_counts"}
 
 
-@pytest.mark.parametrize("module", [parity, ess_ratio, orbit, session],
+@pytest.mark.parametrize("module", [parity, ess_ratio, orbit, session,
+                                    sample_count, warp_vs_quadrature],
                          ids=lambda m: m.__name__.rsplit(".", 1)[-1])
 def test_protocols_refuse_without_a_card(module, tmp_path):
     """Each protocol runs on the card by default and raises without one,
