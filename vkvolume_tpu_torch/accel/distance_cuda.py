@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from ..utils import cuda_build
+from ..utils import cuda_build, timing
 from . import distance
 
 LAUNCHES = {"scan_and_relax_multi": 0, "relax_z_direct_multi": 0,
@@ -42,10 +42,10 @@ def scan_and_relax(occ_u8: torch.Tensor) -> torch.Tensor:
     lib = cuda_build.load_kernels()
     Z, Y, X = occ_u8.shape
     out = torch.empty((1, Z, Y, X), dtype=torch.uint8, device=occ_u8.device)
-    cuda_build.check(lib.vkv_scan_relax2(occ_u8.data_ptr(), out.data_ptr(),
-                                         Z, Y, X, cuda_build.stream()),
-                     "scan_relax2")
-    LAUNCHES["scan_and_relax"] += 1
+    with timing.kernel(LAUNCHES, "scan_and_relax"):
+        cuda_build.check(lib.vkv_scan_relax2(occ_u8.data_ptr(), out.data_ptr(),
+                                             Z, Y, X, cuda_build.stream()),
+                         "scan_relax2")
     return out
 
 
@@ -58,9 +58,10 @@ def relax_z_direct(d_u8: torch.Tensor) -> torch.Tensor:
     lib = cuda_build.load_kernels()
     Z, Y, X = d_u8.shape
     out = torch.empty((1, Z, Y, X), dtype=torch.uint8, device=d_u8.device)
-    cuda_build.check(lib.vkv_relax(d_u8.data_ptr(), out.data_ptr(), Z, Y, X,
-                                   0, 0, cuda_build.stream()), "relax (z)")
-    LAUNCHES["relax_z_direct"] += 1
+    with timing.kernel(LAUNCHES, "relax_z_direct"):
+        cuda_build.check(lib.vkv_relax(d_u8.data_ptr(), out.data_ptr(), Z, Y,
+                                       X, 0, 0, cuda_build.stream()),
+                         "relax (z)")
     return out
 
 
@@ -77,10 +78,10 @@ def relax(D: torch.Tensor, axis: int, direction: int = 0) -> torch.Tensor:
     lib = cuda_build.load_kernels()
     Z, Y, X = D.shape
     out = torch.empty_like(D)
-    cuda_build.check(lib.vkv_relax(D.data_ptr(), out.data_ptr(), Z, Y, X,
-                                   axis, direction, cuda_build.stream()),
-                     "relax")
-    LAUNCHES["relax"] += 1
+    with timing.kernel(LAUNCHES, "relax"):
+        cuda_build.check(lib.vkv_relax(D.data_ptr(), out.data_ptr(), Z, Y, X,
+                                       axis, direction, cuda_build.stream()),
+                         "relax")
     return out
 
 
@@ -103,11 +104,11 @@ def scan_and_relax_multi(occ_u8: torch.Tensor,
     lib = cuda_build.load_kernels()
     Z, Y, X = occ_u8.shape
     out = torch.empty((4, Z, Y, X), dtype=torch.uint8, device=occ_u8.device)
-    cuda_build.check(lib.vkv_scan_relax4(occ_u8.data_ptr(), out.data_ptr(),
-                                         Z, Y, X, int(cap),
-                                         cuda_build.stream()),
-                     "scan_relax4")
-    LAUNCHES["scan_and_relax_multi"] += 1
+    with timing.kernel(LAUNCHES, "scan_and_relax_multi"):
+        cuda_build.check(lib.vkv_scan_relax4(occ_u8.data_ptr(), out.data_ptr(),
+                                             Z, Y, X, int(cap),
+                                             cuda_build.stream()),
+                         "scan_relax4")
     return out
 
 
@@ -122,10 +123,10 @@ def relax_z_direct_multi(ds_u8: torch.Tensor) -> torch.Tensor:
     lib = cuda_build.load_kernels()
     _, Z, Y, X = ds_u8.shape
     out = torch.empty((8, Z, Y, X), dtype=torch.uint8, device=ds_u8.device)
-    cuda_build.check(lib.vkv_z_relax8(ds_u8.data_ptr(), out.data_ptr(),
-                                      Z, Y, X, cuda_build.stream()),
-                     "z_relax8")
-    LAUNCHES["relax_z_direct_multi"] += 1
+    with timing.kernel(LAUNCHES, "relax_z_direct_multi"):
+        cuda_build.check(lib.vkv_z_relax8(ds_u8.data_ptr(), out.data_ptr(),
+                                          Z, Y, X, cuda_build.stream()),
+                         "z_relax8")
     return out
 
 

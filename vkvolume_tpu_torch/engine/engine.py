@@ -57,6 +57,7 @@ from ..render.marcher import march
 from ..render.ray_setup import (RaySetup, RenderOutput, axis_shape,
                                 make_rays, make_uniforms, transpose_for_axis)
 from ..tf.transfer_function import bake_texture, tf_params
+from ..utils.timing import span
 from . import accel_cache
 from .volume import Volume, resolve_device
 
@@ -95,11 +96,14 @@ def _build_maps_fused(density, gradient, tf, thr, *, map_shape_zyx,
     the occupancy map (BLOCK/NONE). ``thr``: the integer path's (ti, tg),
     or None for the float path; ``gradient=None`` with a gradient TF: the
     gradients are computed here from the density."""
-    occ = _occupancy(density, gradient, tf, map_shape_zyx, thr)
+    with span("vkv.tf_update.occupancy"):
+        occ = _occupancy(density, gradient, tf, map_shape_zyx, thr)
     if st == SkippingType.ANISOTROPIC_DISTANCE:
-        return anisotropic_distance_cuda(occ)
+        with span("vkv.tf_update.distance"):
+            return anisotropic_distance_cuda(occ)
     if st == SkippingType.DISTANCE:
-        return isotropic_distance_cuda(occ)
+        with span("vkv.tf_update.distance"):
+            return isotropic_distance_cuda(occ)
     return occ[None]
 
 
@@ -124,7 +128,9 @@ def suspect_mask(color: torch.Tensor, depth: torch.Tensor) -> torch.Tensor:
 @dataclasses.dataclass
 class UpdateStats:
     """The reference log lines' metrics (src/volume_render.cpp:418, 430).
-    In benchmark mode ``map_update_ms`` is the synced per-build time."""
+    ``map_update_ms`` is the synced per-build time in benchmark mode, the
+    build to a synchronise on the load path (``add_volume``), and the host
+    time to queue the build for an interactive edit."""
 
     occupied_voxel_percent: float | None = None
     count_ms: float | None = None
@@ -190,10 +196,16 @@ class Engine:
                 volume.density, 1.0, use_gradient=volume.options.use_gradient)
             self._sync()
             stats.gradient_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
         tf_stats = self.update_transfer_function(volume)
         stats.occupied_voxel_percent = tf_stats.occupied_voxel_percent
         stats.count_ms = tf_stats.count_ms
         stats.map_update_ms = tf_stats.map_update_ms
+        if not self.benchmark_mode:
+            # An interactive edit returns with its build queued: the load
+            # times its build to a synchronise, as the gradient map above.
+            self._sync()
+            stats.map_update_ms = (time.perf_counter() - t0) * 1e3
         if self.accel_cache_dir is not None:
             accel_cache.save(self.accel_cache_dir, volume,
                              self.options.skipping_type)
@@ -240,41 +252,44 @@ class Engine:
         Benchmark mode times 4 × ``timed_runs`` queued builds after one
         warm build, with one sync at the end; interactive edits build once
         and stay queued."""
-        o = volume.options
-        tf = self._tf(volume)
-        stats = UpdateStats()
-        self._bake(volume)
-        gradient = volume.gradient if o.use_precomputed_gradient else None
-        tf_host = (o.intensity_min, o.intensity_max,
-                   o.gradient_min, o.gradient_max)
-        if self.benchmark_mode:
+        with span("vkv.tf_update"):
+            o = volume.options
+            tf = self._tf(volume)
+            stats = UpdateStats()
+            with span("vkv.tf_update.bake"):
+                self._bake(volume)
+            gradient = volume.gradient if o.use_precomputed_gradient else None
+            tf_host = (o.intensity_min, o.intensity_max,
+                       o.gradient_min, o.gradient_max)
+            if self.benchmark_mode:
+                t0 = time.perf_counter()
+                with span("vkv.tf_update.count"):
+                    n_occ = occupied_voxel_count(volume.density, gradient,
+                                                 tf, tf_host=tf_host)
+                stats.count_ms = (time.perf_counter() - t0) * 1e3
+                stats.occupied_voxel_percent = (
+                    100.0 * n_occ / int(np.prod(volume.density.shape)))
+            thr = _tf_thresholds(tf, tf_host)
+
+            def build_maps():
+                return _build_maps_fused(
+                    volume.density, gradient, tf, thr,
+                    map_shape_zyx=volume.map_shape_zyx,
+                    st=self.options.skipping_type)
+
+            runs = timed_runs * 4 if self.benchmark_mode else 1
+            if self.benchmark_mode:
+                build_maps()
+                self._sync()
             t0 = time.perf_counter()
-            n_occ = occupied_voxel_count(volume.density, gradient, tf,
-                                         tf_host=tf_host)
-            stats.count_ms = (time.perf_counter() - t0) * 1e3
-            stats.occupied_voxel_percent = (
-                100.0 * n_occ / int(np.prod(volume.density.shape)))
-        thr = _tf_thresholds(tf, tf_host)
-
-        def build_maps():
-            return _build_maps_fused(
-                volume.density, gradient, tf, thr,
-                map_shape_zyx=volume.map_shape_zyx,
-                st=self.options.skipping_type)
-
-        runs = timed_runs * 4 if self.benchmark_mode else 1
-        if self.benchmark_mode:
-            build_maps()
-            self._sync()
-        t0 = time.perf_counter()
-        for _ in range(runs):
-            maps = build_maps()
-        if self.benchmark_mode:
-            self._sync()
-        stats.map_update_ms = (time.perf_counter() - t0) * 1e3 / runs
-        volume.dist_maps = maps
-        volume._maps_version = getattr(volume, "_maps_version", 0) + 1
-        return stats
+            for _ in range(runs):
+                maps = build_maps()
+            if self.benchmark_mode:
+                self._sync()
+            stats.map_update_ms = (time.perf_counter() - t0) * 1e3 / runs
+            volume.dist_maps = maps
+            volume._maps_version = getattr(volume, "_maps_version", 0) + 1
+            return stats
 
     def set_skipping_type(self, st: SkippingType) -> None:
         """An ESS mode change rebuilds the maps of every volume
@@ -319,24 +334,26 @@ class Engine:
         """One frame: per volume, blended front-to-back in draw order
         (src/volume_render_subpass.cpp:159-293). ``depth_image`` (H, W),
         reverse-Z, clips the rays when ``options.depth_attachment``."""
-        out = None
-        for volume in self.volumes:
-            result = self.render_volume(volume, camera, width, height,
-                                        depth_image=depth_image)
-            if out is None:
-                out = result
-            else:
-                # Blend state ONE, ONE_MINUS_SRC_ALPHA; reverse-Z depth.
-                c = result.color + (1.0 - result.color[..., 3:4]) * out.color
-                out = dataclasses.replace(
-                    result, color=c,
-                    depth=torch.maximum(result.depth, out.depth),
-                    num_volume_samples=(result.num_volume_samples
-                                        + out.num_volume_samples),
-                    num_distance_samples=(result.num_distance_samples
-                                          + out.num_distance_samples),
-                    num_empty_samples=(result.num_empty_samples
-                                       + out.num_empty_samples))
+        with span("vkv.render"):
+            out = None
+            for volume in self.volumes:
+                result = self.render_volume(volume, camera, width, height,
+                                            depth_image=depth_image)
+                if out is None:
+                    out = result
+                else:
+                    # Blend state ONE, ONE_MINUS_SRC_ALPHA; reverse-Z depth.
+                    c = (result.color
+                         + (1.0 - result.color[..., 3:4]) * out.color)
+                    out = dataclasses.replace(
+                        result, color=c,
+                        depth=torch.maximum(result.depth, out.depth),
+                        num_volume_samples=(result.num_volume_samples
+                                            + out.num_volume_samples),
+                        num_distance_samples=(result.num_distance_samples
+                                              + out.num_distance_samples),
+                        num_empty_samples=(result.num_empty_samples
+                                           + out.num_empty_samples))
         return out
 
     def render_volume(self, volume: Volume, camera, width: int,
@@ -348,21 +365,23 @@ class Engine:
             if out is not None:
                 if (self.options.edge_repair
                         and self.options.test == Test.NONE):
-                    out = self._edge_repair(out, volume, camera, width,
-                                            height, depth_image)
+                    with span("vkv.render.edge_repair"):
+                        out = self._edge_repair(out, volume, camera, width,
+                                                height, depth_image)
                 return out
             # Mixed principal-axis signs (a wide-FOV camera inside the
             # volume): no one slab order composites every ray front to
             # back, so the per-ray marcher renders the frame.
         self.last_renderer = "marcher"
         self.renderer_counts["marcher"] += 1
-        uniforms = self._uniforms(camera, volume)
-        rays = make_rays(uniforms, height, width, self.device,
-                         depth_image=depth_image,
-                         use_depth=self.options.depth_attachment,
-                         full=True)
-        return self._march(volume, rays, uniforms, camera,
-                           self.options.skipping_type)
+        with span("vkv.render.march"):
+            uniforms = self._uniforms(camera, volume)
+            rays = make_rays(uniforms, height, width, self.device,
+                             depth_image=depth_image,
+                             use_depth=self.options.depth_attachment,
+                             full=True)
+            return self._march(volume, rays, uniforms, camera,
+                               self.options.skipping_type)
 
     def _uniforms(self, camera, volume: Volume):
         return make_uniforms(
@@ -493,9 +512,10 @@ class Engine:
             ("pose", cam_key))
         dsh = tuple(volume.density.shape)
         if pose is None:
-            uniforms = self._uniforms(camera, volume)
-            view, plan = sweep_frame.select_view_plan(
-                uniforms, height, width, lambda q: axis_shape(dsh, q))
+            with span("vkv.render.plan"):
+                uniforms = self._uniforms(camera, volume)
+                view, plan = sweep_frame.select_view_plan(
+                    uniforms, height, width, lambda q: axis_shape(dsh, q))
             pose = dict(uniforms=uniforms, view=view, plan=plan)
             if depth_image is None:
                 keys = [k for k in cache if isinstance(k, tuple)
@@ -510,15 +530,18 @@ class Engine:
             # from the ray setup (the JAX engine's route, any view).
             self.last_renderer = "sweep"
             self.renderer_counts["sweep"] += 1
-            return sweep_mod.entry_exit_frame(
-                make_rays(uniforms, height, width, self.device,
-                          depth_image=depth_image, use_depth=True, full=True),
-                self.options.test)
+            with span("vkv.render.sweep_xla"):
+                return sweep_mod.entry_exit_frame(
+                    make_rays(uniforms, height, width, self.device,
+                              depth_image=depth_image, use_depth=True,
+                              full=True),
+                    self.options.test)
         if view is None or view["mixed"]:
             return None
         p = view["p_axis"]
         if p not in cache:
-            cache[p] = transpose_for_axis(volume.density, p)
+            with span("vkv.render.skip_map"):
+                cache[p] = transpose_for_axis(volume.density, p)
         vol_t = cache[p]
         tf = self._tf(volume)
         grad_t = None
@@ -527,7 +550,9 @@ class Engine:
             # one (on-the-fly gradients) the frame takes the XLA sweep with
             # gradient 1.0, as the JAX engine's does.
             if ("grad", p) not in cache:
-                cache[("grad", p)] = transpose_for_axis(volume.gradient, p)
+                with span("vkv.render.skip_map"):
+                    cache[("grad", p)] = transpose_for_axis(volume.gradient,
+                                                            p)
             grad_t = cache[("grad", p)]
 
         # Skip map: 0 ⇔ occupied for every map kind; distance maps also
@@ -560,13 +585,14 @@ class Engine:
                         and k[0] == "occ" and k[2] == ver]
                 for k in stale + (live if len(live) > 16 else []):
                     del cache[k]
-                if ks is not None:
-                    src = _octant_composite(maps, *ks)
-                else:
-                    src = maps[0]
-                    for i in sel[1:]:
-                        src = torch.minimum(src, maps[i])
-                occ_t = transpose_for_axis(src, p)
+                with span("vkv.render.skip_map"):
+                    if ks is not None:
+                        src = _octant_composite(maps, *ks)
+                    else:
+                        src = maps[0]
+                        for i in sel[1:]:
+                            src = torch.minimum(src, maps[i])
+                    occ_t = transpose_for_axis(src, p)
                 cache[occ_key] = occ_t
         oversample = self._slab_oversample(volume, vol_t.shape, tf)
         n_slabs = int(max(2, round(vol_t.shape[0] * oversample)))
@@ -590,22 +616,25 @@ class Engine:
             # the per-slab sweep on a 256-rect re-plan of the same view.
             narrow = pose.get("plan_narrow")
             if narrow is None:
-                narrow = sweep_frame.plan_from_stats(
-                    view, uniforms, p, vol_t.shape, height, width,
-                    max_rect=256)
+                with span("vkv.render.plan"):
+                    narrow = sweep_frame.plan_from_stats(
+                        view, uniforms, p, vol_t.shape, height, width,
+                        max_rect=256)
                 pose["plan_narrow"] = narrow if narrow is not None else False
             plan = narrow or None
         if plan is None:
             self.last_renderer = "sweep"
             self.renderer_counts["sweep"] += 1
-            return sweep_mod.sweep(
-                vol_t, grad_t, occ_t, tf,
-                make_rays(uniforms, height, width, self.device,
-                          depth_image=depth_image, use_depth=True, full=True),
-                uniforms,
-                self._pvm(camera, volume), self._tf_texture(volume), p_axis=p,
-                early_ray_termination=self.options.early_ray_termination,
-                test=self.options.test, oversample=oversample)
+            with span("vkv.render.sweep_xla"):
+                return sweep_mod.sweep(
+                    vol_t, grad_t, occ_t, tf,
+                    make_rays(uniforms, height, width, self.device,
+                              depth_image=depth_image, use_depth=True,
+                              full=True),
+                    uniforms, self._pvm(camera, volume),
+                    self._tf_texture(volume), p_axis=p,
+                    early_ray_termination=self.options.early_ray_termination,
+                    test=self.options.test, oversample=oversample)
         if occ_t is None:
             occ_t = torch.zeros((1, 1, 1), dtype=torch.uint8,
                                 device=self.device)

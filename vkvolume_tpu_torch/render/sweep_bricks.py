@@ -58,7 +58,7 @@ import torch
 
 from ..options import Test
 from ..tf.transfer_function import TFParams, texel_alpha, truncate_alpha
-from ..utils import cuda_build
+from ..utils import cuda_build, timing
 from .ray_setup import _SLICE_AXES, FrameUniforms, RenderOutput
 
 TILE_W = 128
@@ -820,10 +820,10 @@ def brick_walk(inp: BrickInputs) -> TileLists:
     ptrs = [t.data_ptr() for t in (
         inp.wu, inp.wv, inp.s_lo, inp.s_hi, inp.cov, inp.coarse, inp.cskip,
         inp.kb_occ, lists.cnt, lists.lst)]
-    cuda_build.check(cuda_build.load_kernels().vkv_brick_walk(
-        *ptrs, cuda_build.BrickParams(**p), cuda_build.stream()),
-        "brick_walk")
-    LAUNCHES["brick_walk"] += 1
+    with timing.kernel(LAUNCHES, "brick_walk"):
+        cuda_build.check(cuda_build.load_kernels().vkv_brick_walk(
+            *ptrs, cuda_build.BrickParams(**p), cuda_build.stream()),
+            "brick_walk")
     return lists
 
 
@@ -858,11 +858,11 @@ def sweep_bricks_composite(inp: BrickInputs, walk: TileLists):
     ptrs = [t.data_ptr() for t in (
         inp.wu, inp.wv, inp.s_lo, inp.s_hi, inp.kappa, inp.cov, inp.vol,
         grad, walk.cnt, walk.lst, lum, alpha, firsts, nsamp)]
-    cuda_build.check(cuda_build.load_kernels().vkv_sweep_bricks(
-        *ptrs, cuda_build.BrickParams(**p), cuda_build.stream()),
-        "sweep_bricks")
-    LAUNCHES["sweep_bricks_texture" if p["texture_tf"]
-             else "sweep_bricks"] += 1
+    key = "sweep_bricks_texture" if p["texture_tf"] else "sweep_bricks"
+    with timing.kernel(LAUNCHES, key):
+        cuda_build.check(cuda_build.load_kernels().vkv_sweep_bricks(
+            *ptrs, cuda_build.BrickParams(**p), cuda_build.stream()),
+            "sweep_bricks")
     return lum, alpha, firsts, nsamp
 
 
@@ -887,36 +887,40 @@ def sweep_bricks(vol_t: torch.Tensor, occupancy_t: torch.Tensor,
     the baked texture. Under ``Test.NUM_TEXTURE_SAMPLES`` the colour is
     the sample count over the step budget, opaque where covered, as in
     the JAX brick sweep (and the per-slab sweep)."""
-    inp = brick_inputs(vol_t, occupancy_t, tf, uniforms, grid, p_axis=p_axis,
-                       ert=ert, count_samples=count_samples, n_slabs=n_slabs,
-                       sgn=sgn, tile_h=tile_h, dist_leap=dist_leap,
-                       grad_t=grad_t, texture_tf=texture_tf)
+    with timing.span("vkv.frame.brick_inputs"):
+        inp = brick_inputs(vol_t, occupancy_t, tf, uniforms, grid,
+                           p_axis=p_axis, ert=ert,
+                           count_samples=count_samples, n_slabs=n_slabs,
+                           sgn=sgn, tile_h=tile_h, dist_leap=dist_leap,
+                           grad_t=grad_t, texture_tf=texture_tf)
     lum, alpha, firsts, nsamp = sweep_bricks_kernel(inp)
-    f = torch.float32
-    p = inp.params
-    v_ax, u_ax = _SLICE_AXES[p_axis]
-    H, W = lum.shape
-    color = torch.stack([lum, lum, lum, alpha], -1)
-    hit = (alpha > 0.0) & (firsts < 1.5)
-    t_hit = firsts - p["o_p"]
-    pen_xyz = [None, None, None]
-    pen_xyz[p_axis] = firsts
-    pen_xyz[u_ax] = p["o_u"] + inp.wu * t_hit
-    pen_xyz[v_ax] = p["o_v"] + inp.wv * t_hit
-    pen = torch.stack(pen_xyz, -1) - 0.5
-    pen_h = torch.cat([pen, torch.ones((H, W, 1), dtype=f, device=pen.device)],
-                      -1)
-    pvm = torch.as_tensor(np.asarray(proj_view_model, np.float32),
-                          device=pen.device)
-    pen_clip = pen_h @ pvm.T
-    w = pen_clip[..., 3]
-    pen_depth = pen_clip[..., 2] / torch.where(w == 0, 1.0, w)
-    depth = torch.where(hit, pen_depth, 0.0)
-    if test == Test.NUM_TEXTURE_SAMPLES:
-        val = nsamp.to(f) / n_steps_max(max(vol_t.shape), tf.sampling_factor)
-        color = torch.stack([val, val, val, torch.ones_like(val)], -1)
-        color = torch.where(inp.cov[..., None], color, 0.0)
-    zi = torch.zeros((H, W), dtype=torch.int32, device=pen.device)
-    return RenderOutput(color=color, depth=depth, num_volume_samples=nsamp,
-                        num_distance_samples=zi, num_empty_samples=zi,
-                        iterations=n_slabs)
+    with timing.span("vkv.frame.epilogue"):
+        f = torch.float32
+        p = inp.params
+        v_ax, u_ax = _SLICE_AXES[p_axis]
+        H, W = lum.shape
+        color = torch.stack([lum, lum, lum, alpha], -1)
+        hit = (alpha > 0.0) & (firsts < 1.5)
+        t_hit = firsts - p["o_p"]
+        pen_xyz = [None, None, None]
+        pen_xyz[p_axis] = firsts
+        pen_xyz[u_ax] = p["o_u"] + inp.wu * t_hit
+        pen_xyz[v_ax] = p["o_v"] + inp.wv * t_hit
+        pen = torch.stack(pen_xyz, -1) - 0.5
+        pen_h = torch.cat(
+            [pen, torch.ones((H, W, 1), dtype=f, device=pen.device)], -1)
+        pvm = torch.as_tensor(np.asarray(proj_view_model, np.float32),
+                              device=pen.device)
+        pen_clip = pen_h @ pvm.T
+        w = pen_clip[..., 3]
+        pen_depth = pen_clip[..., 2] / torch.where(w == 0, 1.0, w)
+        depth = torch.where(hit, pen_depth, 0.0)
+        if test == Test.NUM_TEXTURE_SAMPLES:
+            val = nsamp.to(f) / n_steps_max(max(vol_t.shape),
+                                            tf.sampling_factor)
+            color = torch.stack([val, val, val, torch.ones_like(val)], -1)
+            color = torch.where(inp.cov[..., None], color, 0.0)
+        zi = torch.zeros((H, W), dtype=torch.int32, device=pen.device)
+        return RenderOutput(color=color, depth=depth, num_volume_samples=nsamp,
+                            num_distance_samples=zi, num_empty_samples=zi,
+                            iterations=n_slabs)

@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from ..options import Test
+from ..utils import timing
 from . import plan as plan_mod
 from . import sweep_bricks, sweep_slabs, warp_cuda
 from .ray_setup import (_SLICE_AXES, FrameUniforms, RaySetup, RenderOutput,
@@ -694,40 +695,42 @@ def _pixel_stage(chans: torch.Tensor, rays: RaySetup, gp, hcoef, tf, *,
     outputs. ``rays`` may be a shard's image rows, from ``row0`` of an
     ``H_total``-row image (``warp_positions``)."""
     H, W = rays.valid.shape
-    gx, gy = pixel_grid_coords(rays, gp, p_axis)
-    if RECT_A is not None:
-        pos1, pos2 = warp_positions(gx, gy, gp, hcoef, Hi=Hi,
-                                    Wi=chans.shape[2],
-                                    warp_variant=warp_variant,
-                                    H_total=H_total, row0=row0)
-        # u16-encoded warp: lum/alpha/depth live in [0, 1] (depth is
-        # reverse-Z clip depth; no-hit pixels are overwritten below); the
-        # sample count is an integer far below 65535 (at most n_slabs),
-        # warped at scale 1.
-        scales = ([65535.0] * 3 + [1.0])[:chans.shape[0]]
-        warp = (warp_cuda.warp_two_pass_b if warp_variant == "B"
-                else warp_cuda.warp_two_pass)
-        warped = warp(chans, pos1, pos2, scales=scales)[:, :H, :]
-    elif R_warp is not None:
-        warped = warp_cuda.warp_to_pixels(chans, gx.contiguous(),
-                                          gy.contiguous())
-    else:
-        warped = warp_cuda.warp_to_pixels_plain(chans, gx, gy)
-    lum, alpha, depth = warped[0], warped[1], warped[2]
-    covered = gx > -5.0
-    depth = torch.where(covered & (alpha > 0.0), depth, rays.depth_init)
-    color = torch.stack([lum, lum, lum, alpha], -1)
-    zi = torch.zeros((H, W), dtype=torch.int32, device=chans.device)
-    nsamp = zi
-    if test == Test.NUM_TEXTURE_SAMPLES:
-        nsamp = warped[3].to(torch.int32)
-        val = warped[3] / sweep_slabs.n_steps_max(dim_max,
-                                                  tf.sampling_factor)
-        color = torch.stack([val, val, val, torch.ones_like(val)], -1)
-        color = torch.where(covered[..., None], color, 0.0)
-    return RenderOutput(color=color, depth=depth, num_volume_samples=nsamp,
-                        num_distance_samples=zi, num_empty_samples=zi,
-                        iterations=iterations)
+    with timing.span("vkv.frame.warp"):
+        gx, gy = pixel_grid_coords(rays, gp, p_axis)
+        if RECT_A is not None:
+            pos1, pos2 = warp_positions(gx, gy, gp, hcoef, Hi=Hi,
+                                        Wi=chans.shape[2],
+                                        warp_variant=warp_variant,
+                                        H_total=H_total, row0=row0)
+            # u16-encoded warp: lum/alpha/depth live in [0, 1] (depth is
+            # reverse-Z clip depth; no-hit pixels are overwritten below); the
+            # sample count is an integer far below 65535 (at most n_slabs),
+            # warped at scale 1.
+            scales = ([65535.0] * 3 + [1.0])[:chans.shape[0]]
+            warp = (warp_cuda.warp_two_pass_b if warp_variant == "B"
+                    else warp_cuda.warp_two_pass)
+            warped = warp(chans, pos1, pos2, scales=scales)[:, :H, :]
+        elif R_warp is not None:
+            warped = warp_cuda.warp_to_pixels(chans, gx.contiguous(),
+                                              gy.contiguous())
+        else:
+            warped = warp_cuda.warp_to_pixels_plain(chans, gx, gy)
+    with timing.span("vkv.frame.pixels"):
+        lum, alpha, depth = warped[0], warped[1], warped[2]
+        covered = gx > -5.0
+        depth = torch.where(covered & (alpha > 0.0), depth, rays.depth_init)
+        color = torch.stack([lum, lum, lum, alpha], -1)
+        zi = torch.zeros((H, W), dtype=torch.int32, device=chans.device)
+        nsamp = zi
+        if test == Test.NUM_TEXTURE_SAMPLES:
+            nsamp = warped[3].to(torch.int32)
+            val = warped[3] / sweep_slabs.n_steps_max(dim_max,
+                                                      tf.sampling_factor)
+            color = torch.stack([val, val, val, torch.ones_like(val)], -1)
+            color = torch.where(covered[..., None], color, 0.0)
+        return RenderOutput(color=color, depth=depth, num_volume_samples=nsamp,
+                            num_distance_samples=zi, num_empty_samples=zi,
+                            iterations=iterations)
 
 
 def _frame_body(vol_t: torch.Tensor, occupancy_t: torch.Tensor, tf,
@@ -755,11 +758,12 @@ def _frame_body(vol_t: torch.Tensor, occupancy_t: torch.Tensor, tf,
     then holds (of a ``height``-row image)."""
     uniforms, pvm, gp, hcoef = unpack_frame_scalars(packed)
     dev = vol_t.device
-    if rays is None:
-        rays = make_rays(uniforms, height, width, dev)
     n, r = (1, 0) if shard is None else (shard.size, shard.rank)
     Hi_loc = Hi // n
-    wu_g, wv_g = w_grid(gp, Hi_loc, Wi, dev, row0=r * Hi_loc)
+    with timing.span("vkv.frame.rays"):
+        if rays is None:
+            rays = make_rays(uniforms, height, width, dev)
+        wu_g, wv_g = w_grid(gp, Hi_loc, Wi, dev, row0=r * Hi_loc)
     sgn = 1 if sgn_p > 0 else -1
     num_test = test == Test.NUM_TEXTURE_SAMPLES
     # The brick sweep whenever the plan proved its rect feasible and every
@@ -767,8 +771,9 @@ def _frame_body(vol_t: torch.Tensor, occupancy_t: torch.Tensor, tf,
     # otherwise the per-slab sweep.
     if R_brick is not None and n_slabs >= vol_t.shape[0] \
             and Hi_loc % tile_h == 0:
-        s_lo, s_hi, cov, kappa = sweep_bricks.grid_fields(
-            uniforms, wu_g, wv_g, sgn, p_axis, max(vol_t.shape), n_slabs)
+        with timing.span("vkv.frame.grid_fields"):
+            s_lo, s_hi, cov, kappa = sweep_bricks.grid_fields(
+                uniforms, wu_g, wv_g, sgn, p_axis, max(vol_t.shape), n_slabs)
         grid_out = sweep_bricks.sweep_bricks(
             vol_t, occupancy_t, tf, uniforms, pvm,
             (wu_g, wv_g, s_lo, s_hi, kappa, cov), p_axis=p_axis, ert=ert,
@@ -784,16 +789,19 @@ def _frame_body(vol_t: torch.Tensor, occupancy_t: torch.Tensor, tf,
             # Only the brick sweep has the texture-TF variant; the engine
             # sends texture frames here only when its plan takes K1.
             raise PallasUnsupported("the texture TF needs the brick sweep")
+        with timing.span("vkv.frame.grid_fields"):
+            g_rays = grid_rays(uniforms, wu_g, wv_g, p_axis, sgn_p)
         grid_out = sweep_slabs.sweep_slabs(
-            vol_t, occupancy_t, tf,
-            grid_rays(uniforms, wu_g, wv_g, p_axis, sgn_p), uniforms, pvm,
+            vol_t, occupancy_t, tf, g_rays, uniforms, pvm,
             grad_t, p_axis=p_axis, ert=ert, test=test,
             count_samples=num_test, n_slabs=n_slabs, separable=True,
             dist_leap=dist_leap)
-    chans = [grid_out.color[..., 0], grid_out.color[..., 3], grid_out.depth]
-    if num_test:
-        chans.append(grid_out.num_volume_samples.to(torch.float32))
-    chans = torch.stack(chans)
+    with timing.span("vkv.frame.epilogue"):
+        chans = [grid_out.color[..., 0], grid_out.color[..., 3],
+                 grid_out.depth]
+        if num_test:
+            chans.append(grid_out.num_volume_samples.to(torch.float32))
+        chans = torch.stack(chans)
     if shard is not None:
         # The frame's one collective: the full grid from every rank's rows.
         chans = shard.all_gather(chans, dim=1)

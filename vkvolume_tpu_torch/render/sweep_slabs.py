@@ -46,7 +46,7 @@ import torch
 
 from ..options import Test
 from ..tf.transfer_function import TFParams
-from ..utils import cuda_build
+from ..utils import cuda_build, timing
 from .ray_setup import _SLICE_AXES, FrameUniforms, RaySetup, RenderOutput
 from .sweep_bricks import (CoarseMap, TileLists, _composite_lists, _f2i,
                            _f32, _interleaved, _PlainTiles, _walk_lists,
@@ -347,9 +347,10 @@ def slab_walk(inp: SlabInputs) -> TileLists:
     ptrs = [t.data_ptr() for t in (inp.wu, inp.wv, inp.s_lo, inp.s_hi,
                                    inp.cov, inp.coarse, inp.meta, lists.cnt,
                                    lists.lst)]
-    cuda_build.check(cuda_build.load_kernels().vkv_slab_walk(
-        *ptrs, cuda_build.SlabParams(**p), cuda_build.stream()), "slab_walk")
-    LAUNCHES["slab_walk"] += 1
+    with timing.kernel(LAUNCHES, "slab_walk"):
+        cuda_build.check(cuda_build.load_kernels().vkv_slab_walk(
+            *ptrs, cuda_build.SlabParams(**p), cuda_build.stream()),
+            "slab_walk")
     return lists
 
 
@@ -380,10 +381,10 @@ def sweep_slabs_composite(inp: SlabInputs, walk: TileLists):
     ptrs = [t.data_ptr() for t in (
         inp.wu, inp.wv, inp.s_lo, inp.s_hi, inp.kappa, inp.cov, inp.vol,
         grad, inp.meta, walk.cnt, walk.lst, lum, alpha, firsts, nsamp)]
-    cuda_build.check(cuda_build.load_kernels().vkv_sweep_slabs(
-        *ptrs, cuda_build.SlabParams(**p), cuda_build.stream()),
-        "sweep_slabs")
-    LAUNCHES["sweep_slabs"] += 1
+    with timing.kernel(LAUNCHES, "sweep_slabs"):
+        cuda_build.check(cuda_build.load_kernels().vkv_sweep_slabs(
+            *ptrs, cuda_build.SlabParams(**p), cuda_build.stream()),
+            "sweep_slabs")
     return lum, alpha, firsts, nsamp
 
 
@@ -412,31 +413,35 @@ def sweep_slabs(vol_t: torch.Tensor, occupancy_t: torch.Tensor, tf: TFParams,
                       n_slabs=n_slabs, dist_leap=dist_leap,
                       separable=separable)
     lum, alpha, firsts, nsamp = sweep_slabs_kernel(inp)
-    p = inp.params
-    v_ax, u_ax = _SLICE_AXES[p_axis]
-    H, W = lum.shape
-    f = torch.float32
-    dev = lum.device
-    color = torch.stack([lum, lum, lum, alpha], -1)
-    # Depth from the first contributing slab.
-    hit = (alpha > 0.0) & (firsts < 1.5)
-    t_hit = firsts - p["o_p"]
-    pen_xyz = [None, None, None]
-    pen_xyz[p_axis] = firsts
-    pen_xyz[u_ax] = p["o_u"] + inp.wu * t_hit
-    pen_xyz[v_ax] = p["o_v"] + inp.wv * t_hit
-    pen = torch.stack(pen_xyz, -1) - 0.5
-    pen_h = torch.cat([pen, torch.ones((H, W, 1), dtype=f, device=dev)], -1)
-    pvm = torch.as_tensor(np.asarray(proj_view_model, np.float32), device=dev)
-    pen_clip = pen_h @ pvm.T
-    w = pen_clip[..., 3]
-    pen_depth = pen_clip[..., 2] / torch.where(w == 0, 1.0, w)
-    depth = torch.where(hit, pen_depth, rays.depth_init)
-    if num_test:
-        val = nsamp.to(f) / n_steps_max(max(vol_t.shape), tf.sampling_factor)
-        color = torch.stack([val, val, val, torch.ones_like(val)], -1)
-        color = torch.where(inp.cov[..., None], color, 0.0)
-    zi = torch.zeros((H, W), dtype=torch.int32, device=dev)
-    return RenderOutput(color=color, depth=depth, num_volume_samples=nsamp,
-                        num_distance_samples=zi, num_empty_samples=zi,
-                        iterations=n_slabs)
+    with timing.span("vkv.frame.epilogue"):
+        p = inp.params
+        v_ax, u_ax = _SLICE_AXES[p_axis]
+        H, W = lum.shape
+        f = torch.float32
+        dev = lum.device
+        color = torch.stack([lum, lum, lum, alpha], -1)
+        # Depth from the first contributing slab.
+        hit = (alpha > 0.0) & (firsts < 1.5)
+        t_hit = firsts - p["o_p"]
+        pen_xyz = [None, None, None]
+        pen_xyz[p_axis] = firsts
+        pen_xyz[u_ax] = p["o_u"] + inp.wu * t_hit
+        pen_xyz[v_ax] = p["o_v"] + inp.wv * t_hit
+        pen = torch.stack(pen_xyz, -1) - 0.5
+        pen_h = torch.cat([pen, torch.ones((H, W, 1), dtype=f, device=dev)],
+                          -1)
+        pvm = torch.as_tensor(np.asarray(proj_view_model, np.float32),
+                              device=dev)
+        pen_clip = pen_h @ pvm.T
+        w = pen_clip[..., 3]
+        pen_depth = pen_clip[..., 2] / torch.where(w == 0, 1.0, w)
+        depth = torch.where(hit, pen_depth, rays.depth_init)
+        if num_test:
+            val = nsamp.to(f) / n_steps_max(max(vol_t.shape),
+                                            tf.sampling_factor)
+            color = torch.stack([val, val, val, torch.ones_like(val)], -1)
+            color = torch.where(inp.cov[..., None], color, 0.0)
+        zi = torch.zeros((H, W), dtype=torch.int32, device=dev)
+        return RenderOutput(color=color, depth=depth, num_volume_samples=nsamp,
+                            num_distance_samples=zi, num_empty_samples=zi,
+                            iterations=n_slabs)

@@ -23,7 +23,7 @@ import ctypes
 
 import torch
 
-from ..utils import cuda_build
+from ..utils import cuda_build, timing
 
 LAUNCHES = {"resample_rows": 0, "warp_to_pixels": 0}
 
@@ -113,11 +113,11 @@ def resample_pass(src: torch.Tensor, pos: torch.Tensor, *,
         C, lines, n_src, n_pos, scales_in is not None,
         scales_out is not None,
         (ctypes.c_float * 4)(*(list(sc or []) + [1.0] * 4)[:4]))
-    cuda_build.check(lib.vkv_resample_pass(
-        src.data_ptr(), pos.data_ptr(), out.data_ptr(), params,
-        int(src.dtype == torch.uint16), int(encode_out), int(column_src),
-        int(transpose_out), cuda_build.stream()), "resample_pass")
-    LAUNCHES["resample_rows"] += 1
+    with timing.kernel(LAUNCHES, "resample_rows"):
+        cuda_build.check(lib.vkv_resample_pass(
+            src.data_ptr(), pos.data_ptr(), out.data_ptr(), params,
+            int(src.dtype == torch.uint16), int(encode_out), int(column_src),
+            int(transpose_out), cuda_build.stream()), "resample_pass")
     return out
 
 
@@ -235,9 +235,10 @@ def warp_to_pixels(src_chw: torch.Tensor, gx: torch.Tensor,
     out = torch.empty((C,) + tuple(gx.shape), dtype=torch.float32,
                       device=src_chw.device)
     H, W = gx.shape
-    cuda_build.check(lib.vkv_warp_pixels(
-        src_chw.data_ptr(), gx.data_ptr(), gy.data_ptr(), out.data_ptr(), C,
-        Hi, Wi, H, W, None if tile_paths is None else tile_paths.data_ptr(),
-        cuda_build.stream()), "warp_to_pixels")
-    LAUNCHES["warp_to_pixels"] += 1
+    with timing.kernel(LAUNCHES, "warp_to_pixels"):
+        cuda_build.check(lib.vkv_warp_pixels(
+            src_chw.data_ptr(), gx.data_ptr(), gy.data_ptr(), out.data_ptr(),
+            C, Hi, Wi, H, W,
+            None if tile_paths is None else tile_paths.data_ptr(),
+            cuda_build.stream()), "warp_to_pixels")
     return out

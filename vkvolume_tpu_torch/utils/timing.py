@@ -4,6 +4,12 @@ The reference's observability is std::chrono around fenced submits plus
 vkb::Stats frame times (src/volume_render.cpp:210-215, 399-430, 249-251);
 here it is CUDA events around queued work on the card, the host clock on
 the CPU, and ``torch.profiler`` traces.
+
+The frame and TF-edit paths open named spans (``span``, ``kernel``):
+``record_function`` ranges while a torch profiler records, so they land
+in its trace on the clock of the device operations they launch, and a
+shared null context otherwise. Names start with ``vkv.`` (``README.md``,
+"Tracing a session").
 """
 
 from __future__ import annotations
@@ -14,6 +20,25 @@ import statistics
 import time
 
 import torch
+from torch.autograd.profiler import record_function
+
+KERNEL_SPAN = "vkv.kernel."
+_NULL = contextlib.nullcontext()
+_profiling = torch._C._autograd._profiler_enabled
+
+
+def span(name: str):
+    """A ``record_function(name)`` range while a torch profiler records,
+    else one shared null context (no string built, nothing allocated)."""
+    return record_function(name) if _profiling() else _NULL
+
+
+def kernel(table: dict, key: str):
+    """One launch of the port's kernel ``key``: counts it in ``table``
+    (its module's ``LAUNCHES``) and returns the span ``vkv.kernel.<key>``
+    to open around the launch."""
+    table[key] += 1
+    return record_function(KERNEL_SPAN + key) if _profiling() else _NULL
 
 
 def rep_ms(fn, reps: int, inner: int, device, warmup: int = 1):
