@@ -12,24 +12,26 @@ full-scale synthetic stag beetle (494x832x832 u8) into bench.py's engine
   1. builds the engine (TF edit: occupancy + 8 octant distance maps) and
      prints map_update_ms and the occupancy;
   2. holds every kernel against its plain PyTorch version on the card at the
-     main path's shapes (K3+K4 bit-exact; K1's walk lists equal to the plain
-     walk's, its sample counts and first-hit planes exact, lum and alpha
-     within 1e-5 of the plain sweep; K2 per pass u16 within 1 LSB, f32
-     within 1e-6 of full scale, and the whole two-pass warp of the frame's
-     channels in both variants within 1 LSB of the plain warp, each call
-     two kernels and no other work on the card) and times both, K2 beside
-     one ``grid_sample`` per pass;
+     main path's shapes (the occupancy kernel, intensity TF, and K3+K4
+     bit-exact; K1's walk lists equal to the plain walk's, its sample
+     counts and first-hit planes exact, lum and alpha within 1e-5 of the
+     plain sweep; K2 per pass u16 within 1 LSB, f32 within 1e-6 of full
+     scale, and the whole two-pass warp of the frame's channels in both
+     variants within 1 LSB of the plain warp, each call two kernels and no
+     other work on the card) and times both, K2 beside one
+     ``grid_sample`` per pass;
   3. with every launch counter at 0, re-runs the TF edit and renders the
      benchmark pose at 1920x1080 (20 frames x 5 reps, CUDA events), then
-     checks that K1-K4 launched, the plan took the brick sweep and the
-     two-pass warp, the frame has content, and it matches the plain-PyTorch
-     frame on the card;
+     checks that K1-K4 and the occupancy kernel launched, the plan took
+     the brick sweep and the two-pass warp, the frame has content, and it
+     matches the plain-PyTorch frame on the card;
   4. with every launch counter at 0, runs the CLI's default render in this
      process (``vkvolume_tpu_torch.cli --synth beetle --output <png>``:
      isotropic-distance ESS, gradient TF, 1280x720, the brick sweep's
      gradient + plane-pair-lerp variant), checks that K1, K2, the two-sided
-     K4 and K5 launched, then holds the isotropic map bit-exact to its plain
-     version, K5, the two-sided K4 and K1's variant against their plain
+     K4, K5 and the occupancy kernel launched, then holds the occupancy
+     kernel (gradient TF) and the isotropic map bit-exact to their plain
+     versions, K5, the two-sided K4 and K1's variant against their plain
      versions (timing both), the frame against the plain-PyTorch frame, the
      plan (brick sweep, two-pass warp) and the PNG (>= 5 % covered); times
      ms/frame and map_update_ms; runs ``--benchmark 20`` once; then, with
@@ -311,6 +313,9 @@ OPS_PER_PIXEL, OPS_PER_CHANNEL = 14, 7
 # word of the window read, its padding and byte-wise min; per cell its six
 # bound reductions.
 OPS_PER_WINDOW, OPS_PER_WORD, OPS_PER_CELL = 40, 2, 6
+# The occupancy map: per voxel a compare and an OR (a compare and an AND
+# more with a gradient map).
+OPS_PER_VOXEL = 2
 
 
 def bound(nbytes: float, ops: float) -> dict:
@@ -561,6 +566,42 @@ def aniso_rows(occ, maps, timer, phase) -> tuple:
     return k3, k4
 
 
+def occupancy_row(vol, grad, map_shape, ti, tg, timer, phase) -> dict:
+    """The occupancy kernel on an engine's volume (and gradient map): one
+    launch a map, bit-exact to its plain version on the same tensors; its
+    row (timed). Bound: both inputs read once and the map written once;
+    the log adds the volume-only floor and the share of the volume's
+    32-byte sectors with a voxel past ``ti`` (the kernel reads the
+    gradient only behind those)."""
+    import torch
+    from vkvolume_tpu_torch.accel import occupancy, occupancy_cuda
+
+    before = occupancy_cuda.LAUNCHES["occupancy"]
+    occ = occupancy._occupancy_u8(vol, grad, map_shape, ti, tg)
+    assert occupancy_cuda.LAUNCHES["occupancy"] == before + 1
+    plain = occupancy._occupancy_u8_plain(vol, grad, map_shape, ti, tg)
+    assert torch.equal(occ, plain), \
+        f"{phase}: the occupancy kernel differs from its plain version"
+    n_in = vol.numel() * (1 if grad is None else 2)
+    ops = (OPS_PER_VOXEL if grad is None else 2 * OPS_PER_VOXEL) * vol.numel()
+    row = dict(max_abs_err=0.0,
+               ms=timer(lambda: occupancy_cuda.occupancy_u8(
+                   vol, grad, map_shape, ti, tg), 20),
+               plain_ms=timer(lambda: occupancy._occupancy_u8_plain(
+                   vol, grad, map_shape, ti, tg), 5),
+               **bound(n_in + occ.numel(), ops))
+    floor = bound(vol.numel() + occ.numel(), OPS_PER_VOXEL * vol.numel())
+    sectors = (float((vol.view(-1, 32) >= ti).any(dim=1).float().mean())
+               if vol.numel() % 32 == 0 else float("nan"))
+    log(f"{phase}: occupancy kernel bit-exact {tuple(vol.shape)} -> "
+        f"{tuple(occ.shape)} (ti {ti}, tg {tg}, gradient "
+        f"{grad is not None}), {int((occ == 0).sum())} occupied cells; "
+        f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
+        f"{row['bound_ms']:.4f} ms, volume-only floor "
+        f"{floor['bound_ms']:.4f} ms; sectors past ti {sectors:.4f}")
+    return row
+
+
 def phase_kernels(eng, cam, timer):
     """Each kernel against its plain version at the main path's shapes."""
     import torch
@@ -576,6 +617,8 @@ def phase_kernels(eng, cam, timer):
     ti, tg = _tf_thresholds(None, (o.intensity_min, o.intensity_max,
                                    o.gradient_min, o.gradient_max))
     occ = _occupancy_u8(v.density, None, v.map_shape_zyx, ti, tg)
+    rows["occupancy"] = occupancy_row(v.density, None, v.map_shape_zyx, ti,
+                                      tg, timer, "phase 2")
 
     rows["K3"], rows["K4"] = aniso_rows(occ, v.dist_maps, timer, "phase 2")
 
@@ -830,17 +873,18 @@ def phase_file(out_dir):
 
 
 def reset_launches():
-    from vkvolume_tpu_torch.accel import distance_cuda
+    from vkvolume_tpu_torch.accel import distance_cuda, occupancy_cuda
     from vkvolume_tpu_torch.render import sweep_bricks, sweep_slabs, warp_cuda
 
     for table in (distance_cuda.LAUNCHES, sweep_bricks.LAUNCHES,
-                  sweep_slabs.LAUNCHES, warp_cuda.LAUNCHES):
+                  sweep_slabs.LAUNCHES, warp_cuda.LAUNCHES,
+                  occupancy_cuda.LAUNCHES):
         for k in table:
             table[k] = 0
 
 
 def read_launches():
-    from vkvolume_tpu_torch.accel import distance_cuda
+    from vkvolume_tpu_torch.accel import distance_cuda, occupancy_cuda
     from vkvolume_tpu_torch.render import sweep_bricks, sweep_slabs, warp_cuda
 
     return {"K1": sweep_bricks.LAUNCHES["sweep_bricks"],
@@ -854,7 +898,8 @@ def read_launches():
             "K7": sweep_slabs.LAUNCHES["sweep_slabs"],
             "K8": warp_cuda.LAUNCHES["warp_to_pixels"],
             "K1 walk": sweep_bricks.LAUNCHES["brick_walk"],
-            "K7 walk": sweep_slabs.LAUNCHES["slab_walk"]}
+            "K7 walk": sweep_slabs.LAUNCHES["slab_walk"],
+            "occupancy": occupancy_cuda.LAUNCHES["occupancy"]}
 
 
 @contextlib.contextmanager
@@ -936,7 +981,7 @@ def phase_frame(eng, cam):
         f"{WIDTH}x{HEIGHT})")
     log(f"phase 3: launches {launches}")
     assert all(launches[k] > 0 for k in ("K1", "K1 walk", "K2", "K3",
-                                         "K4")), \
+                                         "K4", "occupancy")), \
         "a kernel of the path never ran"
     assert launches["K1 walk"] == launches["K1"]
 
@@ -980,7 +1025,8 @@ def phase_cli(timer, out_dir):
     launches = read_launches()
     log(f"phase 4: launches {launches}")
     assert all(launches[k] > 0 for k in ("K1", "K1 walk", "K2",
-                                         "K4 two-sided", "K5")), \
+                                         "K4 two-sided", "K5",
+                                         "occupancy")), \
         "a kernel of the CLI path never ran"
     assert launches["K3"] == 0 and launches["K4"] == 0
 
@@ -1022,6 +1068,8 @@ def phase_cli(timer, out_dir):
     ti, tg = _tf_thresholds(None, (o.intensity_min, o.intensity_max,
                                    o.gradient_min, o.gradient_max))
     occ = _occupancy_u8(v.density, v.gradient, v.map_shape_zyx, ti, tg)
+    rows["occupancy gradient"] = occupancy_row(
+        v.density, v.gradient, v.map_shape_zyx, ti, tg, timer, "phase 4")
     assert torch.equal(v.dist_maps[0], distance.isotropic_distance(occ)), \
         "engine isotropic map differs from the plain transform"
     xy_k = distance_cuda.scan_and_relax(occ)
@@ -1610,7 +1658,7 @@ def phase_entry() -> dict:
     assert all(r["stages"][k] > 0 for k in r["stages"])
     assert r["protocol"] == "5x20" and r["scale"] == 1.0
     for k in ("sweep_bricks", "brick_walk", "resample_rows",
-              "scan_and_relax_multi", "relax_z_direct_multi"):
+              "scan_and_relax_multi", "relax_z_direct_multi", "occupancy"):
         assert r["launches"][k] > 0, f"the entry never launched {k}"
     return r
 
@@ -1632,6 +1680,20 @@ def fma_edge_levels() -> list:
     return levels
 
 
+@contextlib.contextmanager
+def plain_occupancy():
+    """The occupancy kernel swapped for its plain version inside the
+    block."""
+    from vkvolume_tpu_torch.accel import occupancy, occupancy_cuda
+
+    saved = occupancy_cuda.occupancy_u8
+    occupancy_cuda.occupancy_u8 = occupancy._occupancy_u8_plain
+    try:
+        yield
+    finally:
+        occupancy_cuda.occupancy_u8 = saved
+
+
 def plain_maps(eng):
     """(occupancy map, skip maps) of the engine's volume from the plain
     versions: the occupancy map (the integer or the float path, with the
@@ -1643,10 +1705,12 @@ def plain_maps(eng):
 
     v = eng.volumes[0]
     o = v.options
-    occ = occupancy_map(v.density, v.gradient, eng._tf(v), v.map_shape_zyx,
-                        on_the_fly_gradient=not o.use_precomputed_gradient,
-                        tf_host=(o.intensity_min, o.intensity_max,
-                                 o.gradient_min, o.gradient_max))
+    with plain_occupancy():
+        occ = occupancy_map(
+            v.density, v.gradient, eng._tf(v), v.map_shape_zyx,
+            on_the_fly_gradient=not o.use_precomputed_gradient,
+            tf_host=(o.intensity_min, o.intensity_max, o.gradient_min,
+                     o.gradient_max))
     skipping_type = eng.options.skipping_type
     if skipping_type == SkippingType.ANISOTROPIC_DISTANCE:
         return occ, distance.anisotropic_distance(occ)
@@ -2266,8 +2330,8 @@ def phase_api(out_dir):
     launches["cache restore"] = read_launches()
     log(f"{ph}: launches {launches['cache restore']}")
     assert stats.map_update_ms is None, f"{ph}: the maps were rebuilt"
-    check_none(launches["cache restore"], ("K3", "K4", "K4 two-sided", "K5"),
-               ph)
+    check_none(launches["cache restore"], ("K3", "K4", "K4 two-sided", "K5",
+                                           "occupancy"), ph)
     assert launches["cache restore"]["K1"] > 0
     assert v.dist_maps.device.type == "cuda"
     assert torch.equal(v.dist_maps, v1.dist_maps)
@@ -3218,6 +3282,15 @@ def main() -> int:
         "K5": ("scan_and_relax (two-sided x-scan + y-relax; isotropic)",
                cli_launches["K5"], "vkvolume_tpu_torch/csrc/distance.cu",
                "vkvolume_tpu/accel/distance_pallas.py:136"),
+        "occupancy": (
+            "occupancy_kernel (intensity TF; bench.py's map, 494x832x832, "
+            "b=4)", launches["occupancy"],
+            "vkvolume_tpu_torch/csrc/occupancy.cu",
+            "none (XLA: vkvolume_tpu/accel/occupancy.py:_occupancy_u8)"),
+        "occupancy gradient": (
+            "occupancy_kernel (gradient TF; the CLI's map, 494x832x832, b=4)",
+            cli_launches["occupancy"], "vkvolume_tpu_torch/csrc/occupancy.cu",
+            "none (XLA: vkvolume_tpu/accel/occupancy.py:_occupancy_u8)"),
         "K6": ("relax (one relaxation, z two-sided; accel API)",
                accel_launches["K6"], "vkvolume_tpu_torch/csrc/distance.cu",
                "vkvolume_tpu/accel/distance_pallas.py:175"),

@@ -220,3 +220,78 @@ def test_engine_maps_for_inverted_tf_match_jax(skipmode,
     assert ts.occupied_voxel_percent == js.occupied_voxel_percent
     np.testing.assert_array_equal(tv.dist_maps.numpy(),
                                   np.asarray(jv.dist_maps))
+
+
+def _block_or_reference(vol, grad, map_shape, ti, tg):
+    """numpy: a cell is OCCUPIED where one of its voxels passes ``v >= ti``
+    (and ``g >= tg`` with a gradient map), cells of ``ceil(extent / map
+    extent)`` voxels per axis; the padding past the ragged edge passes as
+    a voxel of value 0 would (``0 >= ti``) without a gradient map, and
+    never with one."""
+    if ti > 255 or tg > 255:
+        return np.full(map_shape, tocc.EMPTY, np.uint8)
+    b = [-(-e // m) for e, m in zip(vol.shape, map_shape)]
+    passed = vol >= ti
+    if grad is not None:
+        passed &= grad >= tg
+    cells = np.full([m * k for m, k in zip(map_shape, b)],
+                    grad is None and ti == 0)
+    d, h, w = vol.shape
+    cells[:d, :h, :w] = passed
+    (mz, my, mx), (bz, by, bx) = map_shape, b
+    occ = cells.reshape(mz, bz, my, by, mx, bx).any(axis=(1, 3, 5))
+    return np.where(occ, tocc.OCCUPIED, tocc.EMPTY).astype(np.uint8)
+
+
+# Ragged extents (x widths off multiples of 16), one voxel, and a map
+# wider than ceil(extent / block) would make it (whole cells of padding).
+@pytest.mark.parametrize("shape,map_shape", [
+    ((1, 1, 1), None), ((37, 50, 61), None), ((9, 13, 45), None),
+    ((6, 5, 33), None), ((4, 4, 4), (3, 3, 3))])
+@pytest.mark.parametrize("block", [2, 3, 4, 5, 6])
+def test_integer_path_is_a_block_or(shape, map_shape, block):
+    """``_occupancy_u8`` (the plain version the kernel is held to) against a
+    numpy block-OR, every threshold pair of the grid, with and without a
+    gradient map."""
+    rng = np.random.default_rng(block)
+    vol = (rng.random(shape) ** 3 * 256).astype(np.uint8)
+    grad = rng.integers(0, 256, shape, dtype=np.uint8)
+    if map_shape is None:
+        map_shape = tuple(-(-s // block) for s in shape)
+    kinds = set()
+    for ti in (0, 1, 128, 255, 256):
+        for g, tg in [(None, 0)] + [(grad, t) for t in (0, 1, 255)]:
+            got = tocc._occupancy_u8(
+                torch.from_numpy(vol), None if g is None else
+                torch.from_numpy(g), map_shape, ti, tg).numpy()
+            want = _block_or_reference(vol, g, map_shape, ti, tg)
+            assert got.dtype == np.uint8 and got.shape == map_shape
+            np.testing.assert_array_equal(got, want)
+            kinds.update(np.unique(got).tolist())
+    assert kinds == {tocc.OCCUPIED, tocc.EMPTY}
+
+
+def test_cpu_route_never_launches_the_kernel():
+    """On the CPU the map takes the plain version: no kernel launch, by
+    ``_occupancy_u8``, the public map or an engine's edits; the kernel's
+    wrapper refuses a CPU tensor."""
+    from vkvolume_tpu_torch.accel import occupancy_cuda
+    from vkvolume_tpu_torch.engine import Engine, RenderOptions, from_array
+    from vkvolume_tpu_torch.options import SkippingType
+
+    before = dict(occupancy_cuda.LAUNCHES)
+    vol = _volume((13, 17, 19), seed=5)
+    t = torch.from_numpy(vol)
+    for g in (None, t):
+        tocc._occupancy_u8(t, g, (4, 5, 5), 40, 3)
+    _, tt = _tfs(0.15, 0.9, 0.05, 0.45)
+    tocc.occupancy_map(t, t, tt, (4, 5, 5))
+    for skipmode in (2, 3):
+        eng = Engine(RenderOptions(skipping_type=SkippingType(skipmode)),
+                     renderer="pallas", device="cpu")
+        v = from_array(vol, block_size=4, device="cpu")
+        eng.add_volume(v)
+        eng.update_transfer_function(v)
+    assert occupancy_cuda.LAUNCHES == before == {"occupancy": 0}
+    with pytest.raises(ValueError, match="CUDA"):
+        occupancy_cuda.occupancy_u8(t, None, (4, 5, 5), 40, 0)

@@ -5,8 +5,9 @@ PyTorch, port of ``vkvolume_tpu/accel/occupancy.py``
 Fast path: the closed-form ``alpha > 0`` test is monotone in the u8
 intensity (and gradient), so "any voxel of the block has alpha > 0" is a
 per-block u8 max compared with a threshold that the host derives with the
-device's exact float32 arithmetic. General path (a TF range that is not
-monotone, e.g. ``imin > imax``): the per-voxel float32 test
+device's exact float32 arithmetic; on the card it is one kernel launch
+(``occupancy_cuda``, ``csrc/occupancy.cu``). General path (a TF range
+that is not monotone, e.g. ``imin > imax``): the per-voxel float32 test
 ``voxel_alpha_positive``, reduced per block as a u8 mask. Either path takes
 the gradient map or, with ``on_the_fly_gradient``, computes it from the
 volume (``accel/gradient.py``).
@@ -17,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import occupancy_cuda
 from .gradient import gradient_map
 
 OCCUPIED = 0
@@ -123,10 +125,24 @@ def _block_max_u8(a: torch.Tensor, map_shape_zyx) -> torch.Tensor:
 def _occupancy_u8(volume_u8: torch.Tensor, gradient_u8: torch.Tensor | None,
                   map_shape_zyx, ti: int, tg: int) -> torch.Tensor:
     """u8 occupancy map, OCCUPIED = 0 / EMPTY = 255 (threshold 256 = "no u8
-    value is positive")."""
+    value is positive"): the plain version for a CPU tensor, else one
+    launch of the kernel (``occupancy_cuda``)."""
     if ti > 255 or tg > 255:
         return torch.full(map_shape_zyx, EMPTY, dtype=torch.uint8,
                           device=volume_u8.device)
+    if volume_u8.device.type == "cpu":
+        return _occupancy_u8_plain(volume_u8, gradient_u8, map_shape_zyx, ti,
+                                   tg)
+    return occupancy_cuda.occupancy_u8(volume_u8, gradient_u8, map_shape_zyx,
+                                       ti, tg)
+
+
+def _occupancy_u8_plain(volume_u8: torch.Tensor,
+                        gradient_u8: torch.Tensor | None, map_shape_zyx,
+                        ti: int, tg: int) -> torch.Tensor:
+    """The integer path in plain PyTorch, thresholds in [0, 255] (the
+    kernel's twin): the per-block max of the volume, or of the u8 mask of
+    both tests, against its threshold."""
     if gradient_u8 is None:
         occ = _block_max_u8(volume_u8, map_shape_zyx) >= ti
     else:

@@ -27,8 +27,8 @@ steps per output cell, ps per step, and the card. Then each path's
 ``map_update_ms`` (one TF edit: occupancy + distance maps; bench.py's
 engine: the median of its benchmark-mode means over 20 queued builds;
 the CLI's: the median of 5 CUDA-event means over 20 builds), each split
-into the card's time for the plain occupancy map, the distance kernels
-and the whole build (``edit_breakdown``; the rest is host time), and the
+into the card's time for the occupancy map (its kernel), the distance
+kernels and the whole build (``edit_breakdown``; the rest is host time), and the
 ptxas lines (registers, spills) of ``csrc/distance.cu`` from this
 process's build (none when the library was already built). Needs a CUDA
 device.
@@ -104,7 +104,7 @@ def occupancy(volume, use_gradient: bool) -> torch.Tensor:
 
 def edit_breakdown(volume, use_gradient: bool, map_update_ms: float) -> dict:
     """One TF edit's map build split on the card (``device_ms``, 20
-    builds): the plain occupancy map alone, the distance kernels alone
+    builds): the occupancy map alone, the distance kernels alone
     and the whole build; the rest of ``map_update_ms`` (the host clock
     over queued builds) is time the card waits for the host."""
     from ..accel import distance_cuda as dc

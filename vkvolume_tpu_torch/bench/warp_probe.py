@@ -86,7 +86,9 @@ def device_ms(fn, n: int) -> float:
 
 def device_work(fn) -> dict:
     """The kernels and memory copies one call of ``fn`` runs on the card,
-    by name, from a ``torch.profiler`` trace."""
+    by name, from a ``torch.profiler`` trace. The port's ``vkv.*`` spans,
+    which the trace also shows on the card's timeline, are ranges round
+    that work and are left out."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -97,7 +99,8 @@ def device_work(fn) -> dict:
         fn()
         torch.cuda.synchronize()
     names = [e.name for e in prof.events()
-             if e.device_type == DeviceType.CUDA]
+             if e.device_type == DeviceType.CUDA
+             and not e.name.startswith("vkv.")]
     return {"device_events": len(names),
             "copies": sum(1 for n in names if "emcpy" in n
                           or "emset" in n),

@@ -109,6 +109,8 @@ _SIGNATURES = {
     "vkv_sweep_slabs": [_P] * 15 + [SlabParams, _P],
     # (src, gx, gy, out, C, Hi, Wi, H, W, paths, stream)
     "vkv_warp_pixels": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
+    # (vol, grad or NULL, out, D, H, W, mz, my, mx, ti, tg, stream)
+    "vkv_occupancy": [_P, _P, _P] + [_I] * 8 + [_P],
 }
 
 
