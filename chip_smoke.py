@@ -18,11 +18,14 @@ full-scale synthetic stag beetle (494x832x832 u8) into bench.py's engine
      plain sweep; K2 per pass u16 within 1 LSB, f32 within 1e-6 of full
      scale, and the whole two-pass warp of the frame's channels in both
      variants within 1 LSB of the plain warp, each call two kernels and no
-     other work on the card) and times both, K2 beside one
-     ``grid_sample`` per pass;
+     other work on the card; the frame glue's three kernels at the frame's
+     pose, the grid fields bit-exact, the warp's positions within 2e-5
+     relative, the epilogue's lum and alpha exact and its depth within
+     1e-6) and times both, K2 beside one ``grid_sample`` per pass;
   3. with every launch counter at 0, re-runs the TF edit and renders the
      benchmark pose at 1920x1080 (20 frames x 5 reps, CUDA events), then
-     checks that K1-K4 and the occupancy kernel launched, the plan took
+     checks that K1-K4 and the occupancy kernel launched, the frame glue's
+     kernels once a frame, the plan took
      the brick sweep and the two-pass warp, the frame has content, and it
      matches the plain-PyTorch frame on the card;
   4. with every launch counter at 0, runs the CLI's default render in this
@@ -190,6 +193,9 @@ full-scale synthetic stag beetle (494x832x832 u8) into bench.py's engine
      them), the frame times and both paths' map_update_ms and, as the last
      line, {"ok": true, "device": {...}}.
 
+The plain-PyTorch frames the phases compare with swap the frame glue's
+kernels for their twins too.
+
 K1 and K7 each launch two kernels, a walk that lists every tile's visited
 bricks or slabs and a composite over the lists; every check holds the walk
 kernel's lists equal to the plain walk's, and the composite against the
@@ -316,6 +322,16 @@ OPS_PER_WINDOW, OPS_PER_WORD, OPS_PER_CELL = 40, 2, 6
 # The occupancy map: per voxel a compare and an OR (a compare and an AND
 # more with a gradient map).
 OPS_PER_VOXEL = 2
+# The frame glue (csrc/frame_glue.cu), counted from its source: per grid
+# cell the grid fields; per pixel its ray and grid position; per first-pass
+# position of the two-pass warp; per grid cell the epilogue's depth. Bytes:
+# each output written once, the epilogue's three maps read once.
+OPS_GRID_CELL, OPS_PIXEL_RAY, OPS_POSITION, OPS_EPILOGUE_CELL = 92, 126, 41, 37
+# The glue kernels against their twins (tests/test_torch_frame_glue_cuda):
+# positions within GLUE_POS_RTOL relative (absolute below one grid cell)
+# where both cover the pixel, coverage differing on at most GLUE_COVER of
+# them; the epilogue's depth within GLUE_DEPTH_TOL.
+GLUE_POS_RTOL, GLUE_COVER, GLUE_DEPTH_TOL = 2e-5, 1e-4, 1e-6
 
 
 def bound(nbytes: float, ops: float) -> dict:
@@ -652,6 +668,8 @@ def phase_kernels(eng, cam, timer):
     log(f"phase 2: K1 exact walk/nsamp/firsts, lum/alpha err {err:.3g}, grid "
         f"{plan['Hi']}x{plan['Wi']} tile_h={plan['tile_h']} "
         f"samples={int(n_k.sum())}")
+    rows.update(glue_rows(pose, vol_t, n_slabs,
+                          sweep_bricks.sweep_bricks_kernel(inp)[:3], timer))
 
     # K2 on the frame's pass positions and channels, u16 and f32.
     grid_out = sweep_bricks.sweep_bricks(vol_t, occ_t, eng._tf(v), u, pvm,
@@ -725,6 +743,81 @@ def phase_kernels(eng, cam, timer):
                         + 4 * C * n2, OPS_PER_CHANNEL * C * (n1 + n2)))
             log(f"phase 2: grid_sample per pass differs from the plain f32 "
                 f"pass 1 by {lib_err:.3g} where it is not masked")
+    return rows
+
+
+def glue_rows(pose, vol_t, n_slabs, k1_out, timer) -> dict:
+    """The frame glue's three kernels at the frame's pose against their
+    twins on the same tensors (the grid fields bit-exact, the positions
+    and the epilogue's depth within GLUE_*), and their rows (timed)."""
+    import torch
+    from vkvolume_tpu_torch.render import frame_cuda, sweep_frame
+
+    plan = pose["plan"]
+    geom = sweep_frame.glue_geometry(
+        pose["packed"], p_axis=pose["view"]["p_axis"], sgn_p=plan["sgn_p"],
+        Hi=plan["Hi"], Wi=plan["Wi"], height=HEIGHT, width=WIDTH,
+        RECT_A=plan["RECT_A"], warp_variant=plan.get("warp_variant", "A"),
+        vol_shape=vol_t.shape, n_slabs=n_slabs)
+    dev = vol_t.device
+    cells = geom.Hi * geom.Wi
+    rows = {}
+
+    got = frame_cuda.frame_grid(geom, dev)
+    want = frame_cuda.grid_plain(geom, dev)
+    for name, g, w in zip(("wu", "wv", "s_lo", "s_hi", "kappa", "cov"),
+                          got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True,
+                                   msg=lambda m: f"frame_grid {name}: {m}")
+    rows["frame_grid"] = dict(
+        max_abs_err=0.0, ms=timer(lambda: frame_cuda.frame_grid(geom, dev),
+                                  20),
+        plain_ms=timer(lambda: frame_cuda.grid_plain(geom, dev), 5),
+        **bound(21 * cells, OPS_GRID_CELL * cells))
+
+    got = frame_cuda.frame_positions(geom, dev)
+    want = frame_cuda.positions_plain(geom, dev)
+    err = cover = 0.0
+    for name, g, w in zip(frame_cuda.Positions._fields, got, want):
+        if g is None:
+            continue
+        vg, vw = g > -5.0, w > -5.0
+        cover = max(cover, float((vg != vw).to(torch.float64).mean()))
+        both = vg & vw
+        e = ((g - w).abs() / w.abs().clamp(min=1.0))[both]
+        err = max(err, float(e.max()) if e.numel() else 0.0)
+    assert cover <= GLUE_COVER and err <= GLUE_POS_RTOL, \
+        f"frame_positions: coverage differs on {cover}, error {err}"
+    # Variant B's gx is the first rows of its gx_p.
+    n_out = sum(t.numel() for t in got if t is not None) - (
+        got.gx.numel() if geom.warp == "B" else 0)
+    n_pos = 0 if got.pos1 is None else got.pos1.numel()
+    n_pix = HEIGHT * WIDTH
+    rows["frame_positions"] = dict(
+        max_abs_err=err,
+        ms=timer(lambda: frame_cuda.frame_positions(geom, dev), 20),
+        plain_ms=timer(lambda: frame_cuda.positions_plain(geom, dev), 5),
+        **bound(4 * n_out, OPS_PIXEL_RAY * n_pix + OPS_POSITION * n_pos))
+
+    lum, alpha, firsts = k1_out
+    got = frame_cuda.frame_epilogue(geom, lum, alpha, firsts)
+    want = frame_cuda.epilogue_plain(geom, lum, alpha, firsts)
+    assert torch.equal(got[:2], want[:2]), "frame_epilogue: lum or alpha"
+    d_err = float((got[2] - want[2]).abs().max())
+    assert d_err <= GLUE_DEPTH_TOL, f"frame_epilogue: depth err {d_err}"
+    rows["frame_epilogue"] = dict(
+        max_abs_err=d_err,
+        ms=timer(lambda: frame_cuda.frame_epilogue(geom, lum, alpha,
+                                                   firsts), 20),
+        plain_ms=timer(lambda: frame_cuda.epilogue_plain(geom, lum, alpha,
+                                                         firsts), 5),
+        **bound(24 * cells, OPS_EPILOGUE_CELL * cells))
+    log(f"phase 2: frame glue ({geom.warp}, grid {geom.Hi}x{geom.Wi}, image "
+        f"{HEIGHT}x{WIDTH}): grid fields bit-exact, positions err "
+        f"{err:.3g} (coverage differs on {cover:.3g}), epilogue lum/alpha "
+        f"exact, depth err {d_err:.3g}; ms "
+        + ", ".join(f"{k} {rows[k]['ms']:.4f} (plain {rows[k]['plain_ms']:.4f}"
+                    f", bound {rows[k]['bound_ms']:.4f})" for k in rows))
     return rows
 
 
@@ -874,18 +967,20 @@ def phase_file(out_dir):
 
 def reset_launches():
     from vkvolume_tpu_torch.accel import distance_cuda, occupancy_cuda
-    from vkvolume_tpu_torch.render import sweep_bricks, sweep_slabs, warp_cuda
+    from vkvolume_tpu_torch.render import (frame_cuda, sweep_bricks,
+                                           sweep_slabs, warp_cuda)
 
     for table in (distance_cuda.LAUNCHES, sweep_bricks.LAUNCHES,
                   sweep_slabs.LAUNCHES, warp_cuda.LAUNCHES,
-                  occupancy_cuda.LAUNCHES):
+                  occupancy_cuda.LAUNCHES, frame_cuda.LAUNCHES):
         for k in table:
             table[k] = 0
 
 
 def read_launches():
     from vkvolume_tpu_torch.accel import distance_cuda, occupancy_cuda
-    from vkvolume_tpu_torch.render import sweep_bricks, sweep_slabs, warp_cuda
+    from vkvolume_tpu_torch.render import (frame_cuda, sweep_bricks,
+                                           sweep_slabs, warp_cuda)
 
     return {"K1": sweep_bricks.LAUNCHES["sweep_bricks"],
             "K1 texture": sweep_bricks.LAUNCHES["sweep_bricks_texture"],
@@ -899,35 +994,42 @@ def read_launches():
             "K8": warp_cuda.LAUNCHES["warp_to_pixels"],
             "K1 walk": sweep_bricks.LAUNCHES["brick_walk"],
             "K7 walk": sweep_slabs.LAUNCHES["slab_walk"],
-            "occupancy": occupancy_cuda.LAUNCHES["occupancy"]}
+            "occupancy": occupancy_cuda.LAUNCHES["occupancy"],
+            **frame_cuda.LAUNCHES}
 
 
 @contextlib.contextmanager
 def plain_kernels():
-    """K1, K2, K7 and K8 swapped for their plain versions inside the
-    block."""
-    from vkvolume_tpu_torch.render import sweep_bricks, sweep_slabs, warp_cuda
+    """K1, K2, K7, K8 and the frame glue's kernels swapped for their plain
+    versions inside the block."""
+    from vkvolume_tpu_torch.render import (frame_cuda, sweep_bricks,
+                                           sweep_slabs, warp_cuda)
 
     saved = (sweep_bricks.sweep_bricks_kernel, warp_cuda.warp_two_pass,
              warp_cuda.warp_two_pass_b, sweep_slabs.sweep_slabs_kernel,
-             warp_cuda.warp_to_pixels)
+             warp_cuda.warp_to_pixels, frame_cuda.frame_grid,
+             frame_cuda.frame_positions, frame_cuda.frame_epilogue)
     sweep_bricks.sweep_bricks_kernel = sweep_bricks.sweep_bricks_reference
     warp_cuda.warp_two_pass = warp_cuda.warp_two_pass_plain
     warp_cuda.warp_two_pass_b = warp_cuda.warp_two_pass_b_plain
     sweep_slabs.sweep_slabs_kernel = sweep_slabs.sweep_slabs_plain
     warp_cuda.warp_to_pixels = warp_cuda.warp_to_pixels_plain
+    frame_cuda.frame_grid = frame_cuda.grid_plain
+    frame_cuda.frame_positions = frame_cuda.positions_plain
+    frame_cuda.frame_epilogue = frame_cuda.epilogue_plain
     try:
         yield
     finally:
         (sweep_bricks.sweep_bricks_kernel, warp_cuda.warp_two_pass,
          warp_cuda.warp_two_pass_b, sweep_slabs.sweep_slabs_kernel,
-         warp_cuda.warp_to_pixels) = saved
+         warp_cuda.warp_to_pixels, frame_cuda.frame_grid,
+         frame_cuda.frame_positions, frame_cuda.frame_epilogue) = saved
 
 
 def plain_frame(eng, cam, width=WIDTH, height=HEIGHT):
-    """The same frame with K1, K2, K7 and K8 swapped for their plain
-    versions (the maps are the kernels', held bit-exact to the plain maps
-    in phases 2 and 4)."""
+    """The same frame with K1, K2, K7, K8 and the frame glue's kernels
+    swapped for their plain versions (the maps are the kernels', held
+    bit-exact to the plain maps in phases 2 and 4)."""
     with plain_kernels():
         return eng.render(cam, width, height)
 
@@ -984,6 +1086,9 @@ def phase_frame(eng, cam):
                                          "K4", "occupancy")), \
         "a kernel of the path never ran"
     assert launches["K1 walk"] == launches["K1"]
+    assert all(launches[k] == launches["K1"] for k in (
+        "frame_grid", "frame_positions", "frame_epilogue")), \
+        "the frame glue's kernels ran other than once a frame"
 
     pose, _, _ = frame_pose(eng, cam)
     plan = pose["plan"]
@@ -3322,6 +3427,13 @@ def main() -> int:
                      "vkvolume_tpu_torch/csrc/warp_pixels.cu",
                      "vkvolume_tpu/render/warp_pallas.py:26"),
     }
+    for k, what in (("frame_grid", "the w-grid fields"),
+                    ("frame_positions", "the warp's positions"),
+                    ("frame_epilogue", "the channel stack")):
+        where[k] = (f"{k}_kernel ({what}; bench.py frame)", launches[k],
+                    "vkvolume_tpu_torch/csrc/frame_glue.cu",
+                    "none (XLA: vkvolume_tpu/render/sweep_pallas.py:1546 "
+                    "_frame_body, :1672 _pixel_stage)")
     for k in matrix_rows:
         if k.endswith("no leap"):
             brick = k.startswith("K1")

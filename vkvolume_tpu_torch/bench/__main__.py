@@ -55,11 +55,11 @@ REFERENCE_FPS_1200 = {0: 75.3, 1: 340.3, 2: 623.8, 3: 672.3}
 def kernel_launches() -> dict:
     """Each kernel wrapper's launch count so far."""
     from ..accel import distance_cuda, occupancy_cuda
-    from ..render import sweep_bricks, sweep_slabs, warp_cuda
+    from ..render import frame_cuda, sweep_bricks, sweep_slabs, warp_cuda
 
     return {k: n for t in (occupancy_cuda.LAUNCHES, distance_cuda.LAUNCHES,
                            sweep_bricks.LAUNCHES, sweep_slabs.LAUNCHES,
-                           warp_cuda.LAUNCHES)
+                           warp_cuda.LAUNCHES, frame_cuda.LAUNCHES)
             for k, n in t.items()}
 
 

@@ -64,7 +64,7 @@ def main(argv=None) -> int:
     from .. import cli
     from ..accel import distance_cuda
     from ..bench.harness import benchmark_camera
-    from ..render import sweep_bricks, sweep_slabs, warp_cuda
+    from ..render import frame_cuda, sweep_bricks, sweep_slabs, warp_cuda
 
     p = argparse.ArgumentParser(add_help=False)
     p.add_argument("--frames", type=int, default=10)
@@ -80,7 +80,8 @@ def main(argv=None) -> int:
     azimuths = ([float(a) for a in own.azimuths.split(",")]
                 if own.azimuths else [args.azimuth])
     tables = (sweep_bricks.LAUNCHES, sweep_slabs.LAUNCHES,
-              warp_cuda.LAUNCHES, distance_cuda.LAUNCHES)
+              warp_cuda.LAUNCHES, distance_cuda.LAUNCHES,
+              frame_cuda.LAUNCHES)
     for az in azimuths:
         if args.benchmark:
             camera = benchmark_camera(args.width / args.height, az,

@@ -22,7 +22,7 @@ to the TPU kernel's.
   split changes no output bit, because a tile's walk never depends on its
   pixels' state.
 * ``sweep_bricks`` is the whole stage: inputs, K1, and the colour / depth
-  epilogue.
+  epilogue (``first_hit_depth``).
 
 The TPU kernel DMAs a (PLANES, R, rect_w) volume rect per brick and
 samples it with lane gathers and a tent-weight matmul; the port reads the
@@ -896,31 +896,44 @@ def sweep_bricks(vol_t: torch.Tensor, occupancy_t: torch.Tensor,
     lum, alpha, firsts, nsamp = sweep_bricks_kernel(inp)
     with timing.span("vkv.frame.epilogue"):
         f = torch.float32
-        p = inp.params
-        v_ax, u_ax = _SLICE_AXES[p_axis]
         H, W = lum.shape
         color = torch.stack([lum, lum, lum, alpha], -1)
-        hit = (alpha > 0.0) & (firsts < 1.5)
-        t_hit = firsts - p["o_p"]
-        pen_xyz = [None, None, None]
-        pen_xyz[p_axis] = firsts
-        pen_xyz[u_ax] = p["o_u"] + inp.wu * t_hit
-        pen_xyz[v_ax] = p["o_v"] + inp.wv * t_hit
-        pen = torch.stack(pen_xyz, -1) - 0.5
-        pen_h = torch.cat(
-            [pen, torch.ones((H, W, 1), dtype=f, device=pen.device)], -1)
-        pvm = torch.as_tensor(np.asarray(proj_view_model, np.float32),
-                              device=pen.device)
-        pen_clip = pen_h @ pvm.T
-        w = pen_clip[..., 3]
-        pen_depth = pen_clip[..., 2] / torch.where(w == 0, 1.0, w)
-        depth = torch.where(hit, pen_depth, 0.0)
+        depth = first_hit_depth(uniforms, proj_view_model, p_axis, inp.wu,
+                                inp.wv, alpha, firsts)
         if test == Test.NUM_TEXTURE_SAMPLES:
             val = nsamp.to(f) / n_steps_max(max(vol_t.shape),
                                             tf.sampling_factor)
             color = torch.stack([val, val, val, torch.ones_like(val)], -1)
             color = torch.where(inp.cov[..., None], color, 0.0)
-        zi = torch.zeros((H, W), dtype=torch.int32, device=pen.device)
+        zi = torch.zeros((H, W), dtype=torch.int32, device=lum.device)
         return RenderOutput(color=color, depth=depth, num_volume_samples=nsamp,
                             num_distance_samples=zi, num_empty_samples=zi,
                             iterations=n_slabs)
+
+
+def first_hit_depth(uniforms: FrameUniforms, proj_view_model, p_axis: int,
+                    wu: torch.Tensor, wv: torch.Tensor, alpha: torch.Tensor,
+                    firsts: torch.Tensor) -> torch.Tensor:
+    """The brick sweep's depth (H, W): each w-grid ray's first hit (its
+    slab position ``firsts`` along ``p_axis``, the ray's ``wu``, ``wv``)
+    through the host (4, 4) ``proj_view_model``, reverse-Z; 0 where the
+    ray composited nothing."""
+    f = torch.float32
+    o = np.asarray(uniforms.cam_pos_tex, np.float32)
+    v_ax, u_ax = _SLICE_AXES[p_axis]
+    H, W = alpha.shape
+    hit = (alpha > 0.0) & (firsts < 1.5)
+    t_hit = firsts - float(o[p_axis])
+    pen_xyz = [None, None, None]
+    pen_xyz[p_axis] = firsts
+    pen_xyz[u_ax] = float(o[u_ax]) + wu * t_hit
+    pen_xyz[v_ax] = float(o[v_ax]) + wv * t_hit
+    pen = torch.stack(pen_xyz, -1) - 0.5
+    pen_h = torch.cat(
+        [pen, torch.ones((H, W, 1), dtype=f, device=pen.device)], -1)
+    pvm = torch.as_tensor(np.asarray(proj_view_model, np.float32),
+                          device=pen.device)
+    pen_clip = pen_h @ pvm.T
+    w = pen_clip[..., 3]
+    pen_depth = pen_clip[..., 2] / torch.where(w == 0, 1.0, w)
+    return torch.where(hit, pen_depth, 0.0)

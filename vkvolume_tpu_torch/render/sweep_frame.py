@@ -19,6 +19,12 @@ pixels — port of ``vkvolume_tpu/render/sweep_pallas.py``.
   ``RECT_A``, else the single-pass warp (K8) when it has ``R_warp``, else
   (a ``warp_xla`` plan) the gather warp in plain PyTorch, as the JAX
   package leaves it to XLA on every device.
+* The glue around the kernels (the w-grid, its fields, the pixel rays and
+  the warp's positions, the channel stack) is plain PyTorch (``w_grid``,
+  ``sweep_bricks.grid_fields``, ``make_rays``, ``pixel_grid_coords``,
+  ``warp_positions``), except on a CUDA frame of the brick sweep with a
+  two-pass or single-pass warp and its own pixel rays: there it is three
+  launches of ``frame_cuda``'s kernels (``glue_geometry``).
 
 The closed-form intensity or gradient TF and the
 ``Test.NUM_TEXTURE_SAMPLES`` diagnostic (the benchmark mode's frame) run
@@ -48,6 +54,7 @@ import torch
 
 from ..options import Test
 from ..utils import timing
+from . import frame_cuda
 from . import plan as plan_mod
 from . import sweep_bricks, sweep_slabs, warp_cuda
 from .ray_setup import (_SLICE_AXES, FrameUniforms, RaySetup, RenderOutput,
@@ -683,25 +690,33 @@ def warp_positions(gx: torch.Tensor, gy: torch.Tensor, gp, hcoef, *,
     return xa, gy_t.contiguous()
 
 
-def _pixel_stage(chans: torch.Tensor, rays: RaySetup, gp, hcoef, tf, *,
-                 p_axis: int, Hi: int, RECT_A, R_warp, warp_variant: str,
+def _pixel_stage(chans: torch.Tensor, rays: RaySetup | None, gp, hcoef, tf,
+                 *, p_axis: int, Hi: int, RECT_A, R_warp, warp_variant: str,
                  iterations: int, test: Test = Test.NONE,
                  dim_max: int, H_total: int | None = None,
-                 row0: int = 0) -> RenderOutput:
+                 row0: int = 0,
+                 positions: frame_cuda.Positions | None = None
+                 ) -> RenderOutput:
     """Warp of the (C, Hi, Wi) grid channels (lum, alpha, depth, and the
     sample count under ``Test.NUM_TEXTURE_SAMPLES``) to pixels by the
     plan's warp — two-pass (``RECT_A``), single-pass K8 (``R_warp``) or the
     gather warp (neither: a ``warp_xla`` plan) — then the pixel-space
     outputs. ``rays`` may be a shard's image rows, from ``row0`` of an
-    ``H_total``-row image (``warp_positions``)."""
-    H, W = rays.valid.shape
+    ``H_total``-row image (``warp_positions``). ``positions``: the warp's
+    positions made by ``frame_cuda.frame_positions`` from the pose (then
+    ``rays`` is None, and the initial depth 0)."""
     with timing.span("vkv.frame.warp"):
-        gx, gy = pixel_grid_coords(rays, gp, p_axis)
+        if positions is None:
+            gx, gy = pixel_grid_coords(rays, gp, p_axis)
+            if RECT_A is not None:
+                pos1, pos2 = warp_positions(gx, gy, gp, hcoef, Hi=Hi,
+                                            Wi=chans.shape[2],
+                                            warp_variant=warp_variant,
+                                            H_total=H_total, row0=row0)
+        else:
+            gx, gy, pos1, pos2 = positions
+        H, W = gx.shape
         if RECT_A is not None:
-            pos1, pos2 = warp_positions(gx, gy, gp, hcoef, Hi=Hi,
-                                        Wi=chans.shape[2],
-                                        warp_variant=warp_variant,
-                                        H_total=H_total, row0=row0)
             # u16-encoded warp: lum/alpha/depth live in [0, 1] (depth is
             # reverse-Z clip depth; no-hit pixels are overwritten below); the
             # sample count is an integer far below 65535 (at most n_slabs),
@@ -718,7 +733,8 @@ def _pixel_stage(chans: torch.Tensor, rays: RaySetup, gp, hcoef, tf, *,
     with timing.span("vkv.frame.pixels"):
         lum, alpha, depth = warped[0], warped[1], warped[2]
         covered = gx > -5.0
-        depth = torch.where(covered & (alpha > 0.0), depth, rays.depth_init)
+        depth = torch.where(covered & (alpha > 0.0), depth,
+                            0.0 if rays is None else rays.depth_init)
         color = torch.stack([lum, lum, lum, alpha], -1)
         zi = torch.zeros((H, W), dtype=torch.int32, device=chans.device)
         nsamp = zi
@@ -731,6 +747,20 @@ def _pixel_stage(chans: torch.Tensor, rays: RaySetup, gp, hcoef, tf, *,
         return RenderOutput(color=color, depth=depth, num_volume_samples=nsamp,
                             num_distance_samples=zi, num_empty_samples=zi,
                             iterations=iterations)
+
+
+def glue_geometry(packed: np.ndarray, *, p_axis: int, sgn_p: float, Hi: int,
+                  Wi: int, height: int, width: int, RECT_A,
+                  warp_variant: str, vol_shape, n_slabs: int
+                  ) -> frame_cuda.FrameGeometry:
+    """What ``frame_cuda``'s kernels compute a frame's glue from: the
+    pose's ``packed`` scalars and the plan's integers, as
+    ``_frame_body`` passes them."""
+    return frame_cuda.FrameGeometry(
+        packed, p_axis=p_axis, sgn=1 if sgn_p > 0 else -1, Hi=Hi, Wi=Wi,
+        height=height, width=width,
+        warp=warp_variant if RECT_A is not None else "K8",
+        dim_max=max(vol_shape), n_slabs=n_slabs)
 
 
 def _frame_body(vol_t: torch.Tensor, occupancy_t: torch.Tensor, tf,
@@ -755,11 +785,45 @@ def _frame_body(vol_t: torch.Tensor, occupancy_t: torch.Tensor, tf,
     ``shard`` (``parallel.Mesh``; ``render_frame_sharded``): this rank
     sweeps its ``Hi / size`` contiguous grid rows, one all-gather rebuilds
     the grid, and the warp runs on the rank's pixel rows, which ``rays``
-    then holds (of a ``height``-row image)."""
+    then holds (of a ``height``-row image).
+
+    A CUDA frame of the brick sweep with a two-pass or single-pass warp
+    makes its own pixel rays: there the glue around K1 and K2 is
+    ``frame_cuda``'s three kernels, from ``packed`` by value, with no copy
+    to the card and no wait. The other routes (the per-slab sweep, the
+    gather warp, a shard, the caller's rays, ``return_chans``, the sample
+    count test) and the CPU run the plain glue, the kernels' twins."""
     uniforms, pvm, gp, hcoef = unpack_frame_scalars(packed)
     dev = vol_t.device
     n, r = (1, 0) if shard is None else (shard.size, shard.rank)
     Hi_loc = Hi // n
+    brick = (R_brick is not None and n_slabs >= vol_t.shape[0]
+             and Hi_loc % tile_h == 0)
+    if (dev.type == "cuda" and brick
+            and (RECT_A is not None or R_warp is not None)
+            and shard is None and rays is None and not return_chans
+            and test == Test.NONE):
+        geom = glue_geometry(packed, p_axis=p_axis, sgn_p=sgn_p, Hi=Hi,
+                             Wi=Wi, height=height, width=width,
+                             RECT_A=RECT_A, warp_variant=warp_variant,
+                             vol_shape=vol_t.shape, n_slabs=n_slabs)
+        with timing.span("vkv.frame.rays"):
+            positions = frame_cuda.frame_positions(geom, dev)
+        with timing.span("vkv.frame.grid_fields"):
+            grid = frame_cuda.frame_grid(geom, dev)
+        with timing.span("vkv.frame.brick_inputs"):
+            inp = sweep_bricks.brick_inputs(
+                vol_t, occupancy_t, tf, uniforms, grid, p_axis=p_axis,
+                ert=ert, count_samples=False, n_slabs=n_slabs, sgn=geom.sgn,
+                tile_h=tile_h, dist_leap=dist_leap, grad_t=grad_t,
+                texture_tf=texture_tf)
+        lum, alpha, firsts, _ = sweep_bricks.sweep_bricks_kernel(inp)
+        with timing.span("vkv.frame.epilogue"):
+            chans = frame_cuda.frame_epilogue(geom, lum, alpha, firsts)
+        return _pixel_stage(chans, None, gp, hcoef, tf, p_axis=p_axis, Hi=Hi,
+                            RECT_A=RECT_A, R_warp=R_warp,
+                            warp_variant=warp_variant, iterations=n_slabs,
+                            dim_max=max(vol_t.shape), positions=positions)
     with timing.span("vkv.frame.rays"):
         if rays is None:
             rays = make_rays(uniforms, height, width, dev)
@@ -769,8 +833,7 @@ def _frame_body(vol_t: torch.Tensor, occupancy_t: torch.Tensor, tf,
     # The brick sweep whenever the plan proved its rect feasible and every
     # voxel plane gets a slab (the plan's drift margins assume it);
     # otherwise the per-slab sweep.
-    if R_brick is not None and n_slabs >= vol_t.shape[0] \
-            and Hi_loc % tile_h == 0:
+    if brick:
         with timing.span("vkv.frame.grid_fields"):
             s_lo, s_hi, cov, kappa = sweep_bricks.grid_fields(
                 uniforms, wu_g, wv_g, sgn, p_axis, max(vol_t.shape), n_slabs)

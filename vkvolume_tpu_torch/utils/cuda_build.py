@@ -84,6 +84,16 @@ class PassParams(ctypes.Structure):
         ("sc", ctypes.c_float * 4)]
 
 
+class FrameScalars(ctypes.Structure):
+    """Mirror of ``FrameScalars`` in csrc/frame_glue.cu (field order and
+    types must match): ``s`` holds ``sweep_frame.pack_frame_scalars``'
+    array."""
+    _fields_ = [("s", ctypes.c_float * 142)] + [
+        (name, ctypes.c_int) for name in (
+            "Hi", "Wi", "row0", "H", "W", "Hp", "p_axis", "sgn", "warp")] + [
+        ("kappa_scale", ctypes.c_float)]
+
+
 _SIGNATURES = {
     # (occ, out4, Z, Y, X, cap, stream)
     "vkv_scan_relax4": [_P, _P, _I, _I, _I, _I, _P],
@@ -111,6 +121,12 @@ _SIGNATURES = {
     "vkv_warp_pixels": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
     # (vol, grad or NULL, out, D, H, W, mz, my, mx, ti, tg, stream)
     "vkv_occupancy": [_P, _P, _P] + [_I] * 8 + [_P],
+    # (wu, wv, s_lo, s_hi, kappa, cov, scalars, stream)
+    "vkv_frame_grid": [_P] * 6 + [FrameScalars, _P],
+    # (gx, gy, pos1, pos2, scalars, stream); unused outputs NULL
+    "vkv_frame_positions": [_P] * 4 + [FrameScalars, _P],
+    # (lum, alpha, firsts, chans, scalars, stream)
+    "vkv_frame_epilogue": [_P] * 4 + [FrameScalars, _P],
 }
 
 
