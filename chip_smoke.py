@@ -668,8 +668,8 @@ def phase_kernels(eng, cam, timer):
     log(f"phase 2: K1 exact walk/nsamp/firsts, lum/alpha err {err:.3g}, grid "
         f"{plan['Hi']}x{plan['Wi']} tile_h={plan['tile_h']} "
         f"samples={int(n_k.sum())}")
-    rows.update(glue_rows(pose, vol_t, n_slabs,
-                          sweep_bricks.sweep_bricks_kernel(inp)[:3], timer))
+    rows.update(glue_rows(eng, cam, sweep_bricks.sweep_bricks_kernel(inp)[:3],
+                          timer))
 
     # K2 on the frame's pass positions and channels, u16 and f32.
     grid_out = sweep_bricks.sweep_bricks(vol_t, occ_t, eng._tf(v), u, pvm,
@@ -746,25 +746,40 @@ def phase_kernels(eng, cam, timer):
     return rows
 
 
-def glue_rows(pose, vol_t, n_slabs, k1_out, timer) -> dict:
+def frame_geometry(eng, cam):
+    """The glue's geometry of the engine's frame at ``cam`` (what
+    ``_frame_body`` hands ``frame_grid``), from one frame."""
+    from vkvolume_tpu_torch.render import sweep_frame
+
+    got = []
+    saved = sweep_frame.frame_grid
+
+    def grid(geom, device):
+        got.append((geom, device))
+        return saved(geom, device)
+
+    sweep_frame.frame_grid = grid
+    try:
+        eng.render(cam, WIDTH, HEIGHT)
+    finally:
+        sweep_frame.frame_grid = saved
+    assert got, "the frame did not take the brick sweep"
+    return got[-1]
+
+
+def glue_rows(eng, cam, k1_out, timer) -> dict:
     """The frame glue's three kernels at the frame's pose against their
     twins on the same tensors (the grid fields bit-exact, the positions
     and the epilogue's depth within GLUE_*), and their rows (timed)."""
     import torch
     from vkvolume_tpu_torch.render import frame_cuda, sweep_frame
 
-    plan = pose["plan"]
-    geom = sweep_frame.glue_geometry(
-        pose["packed"], p_axis=pose["view"]["p_axis"], sgn_p=plan["sgn_p"],
-        Hi=plan["Hi"], Wi=plan["Wi"], height=HEIGHT, width=WIDTH,
-        RECT_A=plan["RECT_A"], warp_variant=plan.get("warp_variant", "A"),
-        vol_shape=vol_t.shape, n_slabs=n_slabs)
-    dev = vol_t.device
+    geom, dev = frame_geometry(eng, cam)
     cells = geom.Hi * geom.Wi
     rows = {}
 
     got = frame_cuda.frame_grid(geom, dev)
-    want = frame_cuda.grid_plain(geom, dev)
+    want = sweep_frame.grid_plain(geom, dev)
     for name, g, w in zip(("wu", "wv", "s_lo", "s_hi", "kappa", "cov"),
                           got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True,
@@ -772,11 +787,11 @@ def glue_rows(pose, vol_t, n_slabs, k1_out, timer) -> dict:
     rows["frame_grid"] = dict(
         max_abs_err=0.0, ms=timer(lambda: frame_cuda.frame_grid(geom, dev),
                                   20),
-        plain_ms=timer(lambda: frame_cuda.grid_plain(geom, dev), 5),
+        plain_ms=timer(lambda: sweep_frame.grid_plain(geom, dev), 5),
         **bound(21 * cells, OPS_GRID_CELL * cells))
 
     got = frame_cuda.frame_positions(geom, dev)
-    want = frame_cuda.positions_plain(geom, dev)
+    want = sweep_frame.positions_plain(geom, dev)
     err = cover = 0.0
     for name, g, w in zip(frame_cuda.Positions._fields, got, want):
         if g is None:
@@ -796,12 +811,12 @@ def glue_rows(pose, vol_t, n_slabs, k1_out, timer) -> dict:
     rows["frame_positions"] = dict(
         max_abs_err=err,
         ms=timer(lambda: frame_cuda.frame_positions(geom, dev), 20),
-        plain_ms=timer(lambda: frame_cuda.positions_plain(geom, dev), 5),
+        plain_ms=timer(lambda: sweep_frame.positions_plain(geom, dev), 5),
         **bound(4 * n_out, OPS_PIXEL_RAY * n_pix + OPS_POSITION * n_pos))
 
     lum, alpha, firsts = k1_out
     got = frame_cuda.frame_epilogue(geom, lum, alpha, firsts)
-    want = frame_cuda.epilogue_plain(geom, lum, alpha, firsts)
+    want = sweep_frame.epilogue_plain(geom, lum, alpha, firsts)
     assert torch.equal(got[:2], want[:2]), "frame_epilogue: lum or alpha"
     d_err = float((got[2] - want[2]).abs().max())
     assert d_err <= GLUE_DEPTH_TOL, f"frame_epilogue: depth err {d_err}"
@@ -809,8 +824,8 @@ def glue_rows(pose, vol_t, n_slabs, k1_out, timer) -> dict:
         max_abs_err=d_err,
         ms=timer(lambda: frame_cuda.frame_epilogue(geom, lum, alpha,
                                                    firsts), 20),
-        plain_ms=timer(lambda: frame_cuda.epilogue_plain(geom, lum, alpha,
-                                                         firsts), 5),
+        plain_ms=timer(lambda: sweep_frame.epilogue_plain(geom, lum, alpha,
+                                                          firsts), 5),
         **bound(24 * cells, OPS_EPILOGUE_CELL * cells))
     log(f"phase 2: frame glue ({geom.warp}, grid {geom.Hi}x{geom.Wi}, image "
         f"{HEIGHT}x{WIDTH}): grid fields bit-exact, positions err "
@@ -1002,28 +1017,28 @@ def read_launches():
 def plain_kernels():
     """K1, K2, K7, K8 and the frame glue's kernels swapped for their plain
     versions inside the block."""
-    from vkvolume_tpu_torch.render import (frame_cuda, sweep_bricks,
+    from vkvolume_tpu_torch.render import (sweep_bricks, sweep_frame,
                                            sweep_slabs, warp_cuda)
 
     saved = (sweep_bricks.sweep_bricks_kernel, warp_cuda.warp_two_pass,
              warp_cuda.warp_two_pass_b, sweep_slabs.sweep_slabs_kernel,
-             warp_cuda.warp_to_pixels, frame_cuda.frame_grid,
-             frame_cuda.frame_positions, frame_cuda.frame_epilogue)
+             warp_cuda.warp_to_pixels, sweep_frame.frame_grid,
+             sweep_frame.frame_positions, sweep_frame.frame_epilogue)
     sweep_bricks.sweep_bricks_kernel = sweep_bricks.sweep_bricks_reference
     warp_cuda.warp_two_pass = warp_cuda.warp_two_pass_plain
     warp_cuda.warp_two_pass_b = warp_cuda.warp_two_pass_b_plain
     sweep_slabs.sweep_slabs_kernel = sweep_slabs.sweep_slabs_plain
     warp_cuda.warp_to_pixels = warp_cuda.warp_to_pixels_plain
-    frame_cuda.frame_grid = frame_cuda.grid_plain
-    frame_cuda.frame_positions = frame_cuda.positions_plain
-    frame_cuda.frame_epilogue = frame_cuda.epilogue_plain
+    sweep_frame.frame_grid = sweep_frame.grid_plain
+    sweep_frame.frame_positions = sweep_frame.positions_plain
+    sweep_frame.frame_epilogue = sweep_frame.epilogue_plain
     try:
         yield
     finally:
         (sweep_bricks.sweep_bricks_kernel, warp_cuda.warp_two_pass,
          warp_cuda.warp_two_pass_b, sweep_slabs.sweep_slabs_kernel,
-         warp_cuda.warp_to_pixels, frame_cuda.frame_grid,
-         frame_cuda.frame_positions, frame_cuda.frame_epilogue) = saved
+         warp_cuda.warp_to_pixels, sweep_frame.frame_grid,
+         sweep_frame.frame_positions, sweep_frame.frame_epilogue) = saved
 
 
 def plain_frame(eng, cam, width=WIDTH, height=HEIGHT):

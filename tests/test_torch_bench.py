@@ -103,10 +103,9 @@ def test_stage_breakdown_reproduces_the_frame(engine):
     out = engine.render(cam, 256, 256)
     assert engine.last_renderer == "pallas"
     (a, k), (pa, pk) = th.capture_stages(engine, cam, 256, 256)
-    chans, rays, iterations = sweep_frame._frame_body(*a, **k,
-                                                      return_chans=True)
-    assert torch.equal(chans, pa[0])
-    frame = sweep_frame._pixel_stage(chans, rays, *pa[2:], **pk)
+    stage_args = sweep_frame._frame_body(*a, **k, return_chans=True)
+    assert torch.equal(stage_args[0], pa[0])
+    frame = sweep_frame._pixel_stage(*stage_args, **pk)
     assert torch.equal(frame.color, out.color)
     assert torch.equal(frame.depth, out.depth)
     stages = th.stage_breakdown(engine, cam, 256, 256, reps=1, inner=1)

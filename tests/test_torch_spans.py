@@ -17,8 +17,7 @@ from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 W = H = 128
 
 FRAME = ["vkv.frame.rays", "vkv.frame.grid_fields", "vkv.frame.brick_inputs",
-         "vkv.frame.epilogue", "vkv.frame.epilogue", "vkv.frame.warp",
-         "vkv.frame.pixels"]
+         "vkv.frame.epilogue", "vkv.frame.warp", "vkv.frame.pixels"]
 
 
 def _engine(**kw):

@@ -289,8 +289,8 @@ def stage_breakdown(eng, cam, width: int, height: int,
     * ``plan_ms``  — the host plan a fresh pose pays
       (``sweep_frame.select_view_plan``: ``render/plan.analyze_view`` and
       ``plan_from_stats`` per candidate axis), host clock, mean of 20;
-    * ``sweep_ms`` — pixel rays, w-grid fields and the sweep (K1 or K7),
-      up to the channel stack;
+    * ``sweep_ms`` — the warp's positions, the w-grid fields and the
+      sweep (K1 or K7), up to the channel stack;
     * ``warp_ms``  — the pixel stage: the warp (K2 twice, K8 or the gather
       warp) and the pixel outputs.
 

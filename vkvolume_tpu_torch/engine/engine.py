@@ -596,24 +596,23 @@ class Engine:
                 cache[occ_key] = occ_t
         oversample = self._slab_oversample(volume, vol_t.shape, tf)
         n_slabs = int(max(2, round(vol_t.shape[0] * oversample)))
+        k1 = plan is not None and sweep_frame.brick_route(
+            plan, n_slabs, vol_t.shape[0])
         if (self.renderer != "pallas" or min(vol_t.shape[1:]) < 2
                 or depth_image is not None
                 or (tf.use_gradient and grad_t is None)):
             plan = None
-        elif self.options.texture_tf and (
-                plan is None or plan.get("R_brick") is None
-                or n_slabs < vol_t.shape[0]
-                or plan["Hi"] % plan.get("tile_h", 8)):
-            # The texture-TF variant exists only in the brick sweep, which
-            # needs a brick rect, a slab per voxel plane and a grid that
-            # tiles by tile_h (the frame's test for K1); checked before the
-            # narrow re-plan below, as the JAX engine does.
+        elif self.options.texture_tf and not k1:
+            # The texture-TF variant exists only in the brick sweep (K1);
+            # checked before the narrow re-plan below, as the JAX engine
+            # does.
             plan = None
-        elif plan is not None and plan.get("rect_w", 256) > 256 \
-                and n_slabs < vol_t.shape[0]:
-            # Wide-rect plans exist only for the brick sweep, which needs a
-            # slab per voxel plane; fewer slabs (sampling_factor < 1) run
-            # the per-slab sweep on a 256-rect re-plan of the same view.
+        elif plan is not None and not k1 \
+                and sweep_frame.read_plan(plan).rect_w > 256:
+            # Wide-rect plans exist only for the brick sweep; the frames it
+            # cannot take (sampling_factor < 1: fewer slabs than voxel
+            # planes) run the per-slab sweep on a 256-rect re-plan of the
+            # same view.
             narrow = pose.get("plan_narrow")
             if narrow is None:
                 with span("vkv.render.plan"):
@@ -635,33 +634,20 @@ class Engine:
                     self._tf_texture(volume), p_axis=p,
                     early_ray_termination=self.options.early_ray_termination,
                     test=self.options.test, oversample=oversample)
-        if occ_t is None:
-            occ_t = torch.zeros((1, 1, 1), dtype=torch.uint8,
-                                device=self.device)
-            dist_leap = False
-        gp = (plan["wu0"], plan["dwu"], plan.get("cu", 0.0),
-              plan["wv0"], plan["dwv"], plan.get("cv", 0.0))
-        # Keyed by the plan's grid: a TF or sampling edit can switch a
+        # Packed once per pose and plan: a TF or sampling edit can switch a
         # cached pose between its plan and its narrow re-plan.
-        if pose.get("packed_gp") != gp:
-            pose["packed"] = sweep_frame.pack_frame_scalars(
-                uniforms, self._pvm(camera, volume), list(gp),
-                plan.get("hcoef"))
-            pose["packed_gp"] = gp
-        packed = pose["packed"]
+        if pose.get("packed_plan") is not plan:
+            pose["packed"] = sweep_frame.frame_scalars(
+                uniforms, self._pvm(camera, volume), plan)
+            pose["packed_plan"] = plan
         out = sweep_frame._frame_body(
-            vol_t, occ_t, tf, packed, p_axis=p, Hi=plan["Hi"], Wi=plan["Wi"],
-            R_warp=plan["R_warp"], ert=self.options.early_ray_termination,
-            n_slabs=n_slabs,
-            sgn_p=plan["sgn_p"], dist_leap=dist_leap, RECT_A=plan["RECT_A"],
-            tile_h=plan.get("tile_h", 8), R_brick=plan.get("R_brick"),
-            height=height, width=width,
-            warp_variant=plan.get("warp_variant", "A"),
-            rect_w=plan.get("rect_w", 256), grad_t=grad_t,
+            vol_t, occ_t, tf, pose["packed"], plan, p_axis=p,
+            ert=self.options.early_ray_termination, n_slabs=n_slabs,
+            dist_leap=dist_leap, height=height, width=width, grad_t=grad_t,
             test=self.options.test, texture_tf=self.options.texture_tf)
         self.last_renderer = "pallas"
         self.renderer_counts["pallas"] += 1
-        if plan.get("warp_xla"):
+        if sweep_frame.read_plan(plan).warp == "gather":
             # The sweep ran on its kernel, the warp by gather: reported so
             # that an orbit's counts show how many frames took that tier.
             self.renderer_counts["pallas_xla_warp"] = (

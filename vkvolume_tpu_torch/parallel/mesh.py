@@ -332,19 +332,19 @@ def render_frame_sharded(
     if plan is None:
         raise sf.PallasUnsupported("view exceeds w-grid kernel limits")
     n_slabs = int(max(2, round(shape_t[0] * oversample)))
-    if plan.get("rect_w", 256) > 256 and (
-            n_slabs < shape_t[0]
-            or (plan["Hi"] // n) % plan.get("tile_h", 8)):
-        # Wide-rect plans are brick-sweep-only, and the brick sweep needs a
-        # slab per voxel plane and per-rank grid rows that tile: re-plan at
-        # the 256-lane rect the per-slab sweep covers.
+    if sf.read_plan(plan).rect_w > 256 and not sf.brick_route(
+            plan, n_slabs, shape_t[0], ranks=n):
+        # Wide-rect plans are brick-sweep-only: where the brick sweep cannot
+        # take this one on every rank, re-plan at the 256-lane rect the
+        # per-slab sweep covers.
         plan = mesh.broadcast_object(
             sf.plan_frame(uniforms, rays, p_axis, shape_t, H, W, max_rect=256)
             if mesh.rank == 0 else None)
         if plan is None:
             raise sf.PallasUnsupported("view exceeds w-grid kernel limits")
-    if plan["Hi"] % (sf.TILE_H * n):
-        raise ValueError(f"grid height {plan['Hi']} not divisible over {n}")
+    Hi = sf.read_plan(plan).Hi
+    if Hi % (sf.TILE_H * n):
+        raise ValueError(f"grid height {Hi} not divisible over {n}")
     return sf.render_planned(
         vol_t, occupancy_t, tf, shard_rays(rays, mesh), uniforms,
         proj_view_model, grad_t, plan, p_axis=p_axis, ert=ert, test=test,
@@ -427,9 +427,10 @@ def sweep_volume_sharded(
         uniforms, height, width, lambda q: (Np, Sv, Su), axes=(p_axis,))
     if view is None or view.get("mixed") or plan is None:
         raise sf.PallasUnsupported("view exceeds w-grid kernel limits")
-    if plan.get("R_brick") is None:
+    fp = sf.read_plan(plan)
+    if fp.R_brick is None:
         raise sf.PallasUnsupported("brick kernel infeasible for this view")
-    sgn = 1 if plan["sgn_p"] > 0 else -1
+    sgn = fp.sgn
 
     # ---- shard geometry (host): map-plane-aligned slab edges + halo ----
     mp = occupancy_t.shape[0]
@@ -452,11 +453,8 @@ def sweep_volume_sharded(
     occ_sl[torch.as_tensor(midx >= mp, device=dev)] = 255
 
     f32 = np.float32
-    Hi, Wi = plan["Hi"], plan["Wi"]
-    gp = [plan["wu0"], plan["dwu"], plan.get("cu", 0.0) or 0.0,
-          plan["wv0"], plan["dwv"], plan.get("cv", 0.0) or 0.0]
     # The global w-grid fields (alike on every rank), then rebased.
-    wu_g, wv_g = sf.w_grid(gp, Hi, Wi, dev)
+    wu_g, wv_g = sf.w_grid(fp.gp, fp.Hi, fp.Wi, dev)
     s_lo, s_hi, cov, kappa = sb.grid_fields(
         uniforms, wu_g, wv_g, sgn, p_axis, max(Np, Sv, Su), n_slabs)
     # Restrict to the rank's s-range and rebase into local texture
@@ -499,7 +497,7 @@ def sweep_volume_sharded(
         slab, occ_sl, tf, u_loc, pvm_l,
         (wu_l, wv_l, s_lo_l, s_hi_l, kappa, cov_d), p_axis=p_axis, ert=ert,
         count_samples=False, n_slabs=np_loc, sgn=sgn,
-        tile_h=plan["tile_h"], dist_leap=dist_leap, grad_t=grad_sl)
+        tile_h=fp.tile_h, dist_leap=dist_leap, grad_t=grad_sl)
     parts = {k: mesh.all_gather(getattr(part, k)[None], 0)
              for k in ("color", "depth", "num_volume_samples")}
 

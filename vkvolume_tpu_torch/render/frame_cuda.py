@@ -2,20 +2,18 @@
 ``csrc/frame_glue.cu``, computed from the pose's scalars passed by value:
 
 * ``frame_grid``: the w-grid fields K1 reads, (wu, wv, s_lo, s_hi, kappa,
-  cov); its twin ``grid_plain`` is ``sweep_frame.w_grid`` then
-  ``sweep_bricks.grid_fields``;
-* ``frame_positions``: the warp's positions (``Positions``); its twin
-  ``positions_plain`` is ``make_rays``, ``sweep_frame.pixel_grid_coords``
-  and ``sweep_frame.warp_positions``;
+  cov);
+* ``frame_positions``: the warp's positions (``Positions``) of the
+  image's own pixel rays;
 * ``frame_epilogue``: the (3, Hi, Wi) channel stack [lum, alpha, depth]
-  from K1's outputs; its twin ``epilogue_plain`` stacks
-  ``sweep_bricks.first_hit_depth``.
+  from K1's outputs.
 
 The JAX package leaves this glue to XLA, so the kernels mirror no Pallas
-kernel. The twins are the plain PyTorch the frame runs on the CPU and on
-the routes that keep it (``sweep_frame._frame_body`` chooses); the
-kernels take CUDA devices only, or raise. ``LAUNCHES`` counts their
-launches, one of each per frame that takes them.
+kernel. These launchers take CUDA devices only, or raise; the frame calls
+them through ``sweep_frame``'s functions of the same names, which run the
+plain twins beside them there (``grid_plain``, ``positions_plain``,
+``epilogue_plain``) on CPU tensors. ``LAUNCHES`` counts their launches,
+one of each per K1 frame on the card.
 """
 
 from __future__ import annotations
@@ -29,23 +27,23 @@ import numpy as np
 import torch
 
 from ..utils import cuda_build, timing
-from . import sweep_bricks, sweep_frame
-from .ray_setup import make_rays
+from .ray_setup import N_PACKED
 
 LAUNCHES = {"frame_grid": 0, "frame_positions": 0, "frame_epilogue": 0}
 # The warps whose positions ``frame_positions`` writes: the two-pass warp's
-# variants and the single-pass warp (K8); the index is the kernel's.
+# variants and the single-pass warp (K8, whose (gx, gy) the gather warp
+# reads too); the index is the kernel's.
 WARPS = ("A", "B", "K8")
 
 
 @dataclasses.dataclass(frozen=True)
 class FrameGeometry:
     """What one frame's glue is computed from: ``packed``, the pose's
-    ``sweep_frame.pack_frame_scalars`` array, and the plan's integers: the
-    slice axis, the sweep's sign (+-1), the grid's ``Hi`` rows from
-    ``row0`` and ``Wi`` columns, the ``height`` x ``width`` image, the
-    ``warp`` (``WARPS``) and, for kappa, the volume's largest extent and
-    the slab count."""
+    ``pack_frame_scalars`` array, and the plan's integers: the slice axis,
+    the sweep's sign (+-1), the grid's ``Hi`` rows from ``row0`` (a
+    shard's first row) and ``Wi`` columns, the ``height`` x ``width``
+    image, the ``warp`` (``WARPS``) and, for kappa, the volume's largest
+    extent and the slab count."""
     packed: np.ndarray
     p_axis: int
     sgn: int
@@ -63,17 +61,13 @@ class FrameGeometry:
         """The image's rows padded to 128 (the two-pass warp's lines)."""
         return -(-self.height // 128) * 128
 
-    def unpacked(self):
-        """``sweep_frame.unpack_frame_scalars`` of ``packed``."""
-        return sweep_frame.unpack_frame_scalars(self.packed)
-
     @functools.cached_property
     def scalars(self) -> cuda_build.FrameScalars:
         """The kernels' launch struct, built once (raises on what they do
         not take)."""
         packed = np.ascontiguousarray(self.packed, np.float32)
-        if packed.shape != (sweep_frame.N_PACKED,):
-            raise ValueError(f"packed: expected ({sweep_frame.N_PACKED},), "
+        if packed.shape != (N_PACKED,):
+            raise ValueError(f"packed: expected ({N_PACKED},), "
                              f"got {packed.shape}")
         if self.p_axis not in (0, 1, 2) or self.sgn not in (1, -1):
             raise ValueError(f"p_axis {self.p_axis} / sgn {self.sgn}: "
@@ -105,41 +99,6 @@ class Positions(NamedTuple):
     pos2: torch.Tensor | None
 
 
-def grid_plain(geom: FrameGeometry, device) -> tuple:
-    """Plain version of ``frame_grid``: (wu, wv, s_lo, s_hi, kappa, cov),
-    (Hi, Wi) each, as the frame's plain route computes them."""
-    uniforms, _, gp, _ = geom.unpacked()
-    wu, wv = sweep_frame.w_grid(gp, geom.Hi, geom.Wi, device, row0=geom.row0)
-    s_lo, s_hi, cov, kappa = sweep_bricks.grid_fields(
-        uniforms, wu, wv, geom.sgn, geom.p_axis, geom.dim_max, geom.n_slabs)
-    return wu, wv, s_lo, s_hi, kappa, cov
-
-
-def positions_plain(geom: FrameGeometry, device) -> Positions:
-    """Plain version of ``frame_positions``, from the image's own pixel
-    rays."""
-    uniforms, _, gp, hcoef = geom.unpacked()
-    rays = make_rays(uniforms, geom.height, geom.width, device)
-    gx, gy = sweep_frame.pixel_grid_coords(rays, gp, geom.p_axis)
-    if geom.warp == "K8":
-        return Positions(gx, gy, None, None)
-    pos1, pos2 = sweep_frame.warp_positions(
-        gx, gy, gp, hcoef, Hi=geom.Hi, Wi=geom.Wi, warp_variant=geom.warp)
-    return Positions(gx, None, pos1, pos2)
-
-
-def epilogue_plain(geom: FrameGeometry, lum: torch.Tensor,
-                   alpha: torch.Tensor, firsts: torch.Tensor) -> torch.Tensor:
-    """Plain version of ``frame_epilogue``: the (3, Hi, Wi) float32 stack
-    [lum, alpha, depth] of K1's outputs (Hi, Wi) each."""
-    uniforms, pvm, gp, _ = geom.unpacked()
-    wu, wv = sweep_frame.w_grid(gp, geom.Hi, geom.Wi, lum.device,
-                                row0=geom.row0)
-    depth = sweep_bricks.first_hit_depth(uniforms, pvm, geom.p_axis, wu, wv,
-                                         alpha, firsts)
-    return torch.stack([lum, alpha, depth])
-
-
 def _require_device(device) -> torch.device:
     device = torch.device(device)
     if device.type != "cuda":
@@ -148,8 +107,8 @@ def _require_device(device) -> torch.device:
 
 
 def frame_grid(geom: FrameGeometry, device) -> tuple:
-    """``grid_plain``'s fields on a CUDA ``device``, one launch: five
-    float32 maps and the bool coverage."""
+    """The grid fields on a CUDA ``device``, one launch: five float32 maps
+    and the bool coverage."""
     device = _require_device(device)
     scalars = geom.scalars
     shape = (geom.Hi, geom.Wi)
@@ -164,7 +123,7 @@ def frame_grid(geom: FrameGeometry, device) -> tuple:
 
 
 def frame_positions(geom: FrameGeometry, device) -> Positions:
-    """``positions_plain``'s positions on a CUDA ``device``, one launch."""
+    """The warp's positions on a CUDA ``device``, one launch."""
     device = _require_device(device)
     scalars = geom.scalars
     H, W, Hp = geom.height, geom.width, geom.Hp
@@ -188,7 +147,7 @@ def frame_positions(geom: FrameGeometry, device) -> Positions:
 
 def frame_epilogue(geom: FrameGeometry, lum: torch.Tensor,
                    alpha: torch.Tensor, firsts: torch.Tensor) -> torch.Tensor:
-    """``epilogue_plain``'s stack from CUDA maps, one launch."""
+    """The channel stack from CUDA maps, one launch."""
     shape = (geom.Hi, geom.Wi)
     for name, t in (("lum", lum), ("alpha", alpha), ("firsts", firsts)):
         cuda_build.require_cuda(name, t, torch.float32, shape)

@@ -13,7 +13,9 @@ principal-axis permutations of ``vkvolume_tpu/render/sweep.py``, the
 here), ``ray_caster_get_back``, the frag-exact ray exit, and
 ``rays_from_dirs`` of ``render/frustum.py``: the entry and exit of rays
 along given directions, which ``make_rays``' full form and the per-slab
-sweep's w-grid rays share.
+sweep's w-grid rays share; and the pose's scalars as one float32 array
+(``pack_frame_scalars``, of ``render/sweep_pallas.py``), which the w-grid
+frame and its glue kernels read.
 
 With a depth attachment (the DEPTH_ATTACHMENT variant,
 volume_render.frag:122-165) ``make_rays`` discards the pixels whose scene
@@ -123,6 +125,52 @@ def make_uniforms(
         block_size=f32(block_size_xyz),
         front_index=np.int32(front_index),
     )
+
+
+# Every per-pose float the frame consumes (uniform leaves + proj_view_model
+# + grid params + homography coefficients) in one flat float32 array.
+_UNIFORM_FIELDS = (
+    ("view", 16), ("proj", 16), ("view_proj_inv", 16), ("model", 16),
+    ("model_inv", 16), ("global_to_tex", 16), ("plane", 4),
+    ("plane_tex", 4), ("cam_pos_tex", 3), ("block_size", 3),
+    ("front_index", 1),
+)
+_N_UNIFORM = sum(n for _, n in _UNIFORM_FIELDS)            # 111
+N_PACKED = _N_UNIFORM + 16 + 6 + 9                          # + pvm, gp, hcoef
+
+
+def pack_frame_scalars(uniforms: FrameUniforms, pvm, gp,
+                       hcoef=None) -> np.ndarray:
+    """Flatten (uniforms, proj_view_model, grid_params, hcoef) into one
+    (N_PACKED,) float32 array (hcoef None → zeros)."""
+    parts = [np.asarray(getattr(uniforms, name), np.float32).ravel()
+             for name, _ in _UNIFORM_FIELDS]
+    parts.append(np.asarray(pvm, np.float32).ravel())
+    parts.append(np.asarray(gp, np.float32).ravel())
+    parts.append(np.zeros(9, np.float32) if hcoef is None
+                 else np.asarray(hcoef, np.float32).ravel())
+    out = np.concatenate(parts)
+    assert out.shape == (N_PACKED,), out.shape
+    return out
+
+
+def unpack_frame_scalars(arr: np.ndarray):
+    """Inverse of pack_frame_scalars: (uniforms, pvm, gp, hcoef), host
+    float32 numpy."""
+    vals = {}
+    off = 0
+    for name, n in _UNIFORM_FIELDS:
+        v = arr[off:off + n]
+        off += n
+        vals[name] = v.reshape(4, 4) if n == 16 else v
+    vals["front_index"] = np.int32(vals["front_index"][0])
+    u = FrameUniforms(**vals)
+    pvm = arr[off:off + 16].reshape(4, 4)
+    off += 16
+    gp = arr[off:off + 6]
+    off += 6
+    hcoef = arr[off:off + 9]
+    return u, pvm, gp, hcoef
 
 
 @dataclasses.dataclass(frozen=True)

@@ -22,7 +22,8 @@ to the TPU kernel's.
   split changes no output bit, because a tile's walk never depends on its
   pixels' state.
 * ``sweep_bricks`` is the whole stage: inputs, K1, and the colour / depth
-  epilogue (``first_hit_depth``).
+  epilogue (``first_hit_depth``), for the volume-sharded sweep
+  (``parallel.sweep_volume_sharded``); the w-grid frame runs the parts.
 
 The TPU kernel DMAs a (PLANES, R, rect_w) volume rect per brick and
 samples it with lane gathers and a tent-weight matmul; the port reads the
@@ -56,7 +57,6 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..options import Test
 from ..tf.transfer_function import TFParams, texel_alpha, truncate_alpha
 from ..utils import cuda_build, timing
 from .ray_setup import _SLICE_AXES, FrameUniforms, RenderOutput
@@ -878,37 +878,24 @@ def sweep_bricks(vol_t: torch.Tensor, occupancy_t: torch.Tensor,
                  grid, *, p_axis: int, ert: bool, count_samples: bool,
                  n_slabs: int, sgn: int, tile_h: int, dist_leap: bool,
                  grad_t: torch.Tensor | None = None,
-                 texture_tf: bool = False,
-                 test: Test = Test.NONE) -> RenderOutput:
+                 texture_tf: bool = False) -> RenderOutput:
     """The brick sweep stage: ``grid`` = (wu, wv, s_lo, s_hi, kappa,
     covered) w-grid fields (see grid_fields); ``proj_view_model`` the host
     (4, 4) float32 matrix for the first-hit depth; ``grad_t`` the
     transposed gradient map (gradient TFs); ``texture_tf`` the TF through
-    the baked texture. Under ``Test.NUM_TEXTURE_SAMPLES`` the colour is
-    the sample count over the step budget, opaque where covered, as in
-    the JAX brick sweep (and the per-slab sweep)."""
-    with timing.span("vkv.frame.brick_inputs"):
-        inp = brick_inputs(vol_t, occupancy_t, tf, uniforms, grid,
-                           p_axis=p_axis, ert=ert,
-                           count_samples=count_samples, n_slabs=n_slabs,
-                           sgn=sgn, tile_h=tile_h, dist_leap=dist_leap,
-                           grad_t=grad_t, texture_tf=texture_tf)
+    the baked texture."""
+    inp = brick_inputs(vol_t, occupancy_t, tf, uniforms, grid, p_axis=p_axis,
+                       ert=ert, count_samples=count_samples, n_slabs=n_slabs,
+                       sgn=sgn, tile_h=tile_h, dist_leap=dist_leap,
+                       grad_t=grad_t, texture_tf=texture_tf)
     lum, alpha, firsts, nsamp = sweep_bricks_kernel(inp)
-    with timing.span("vkv.frame.epilogue"):
-        f = torch.float32
-        H, W = lum.shape
-        color = torch.stack([lum, lum, lum, alpha], -1)
-        depth = first_hit_depth(uniforms, proj_view_model, p_axis, inp.wu,
-                                inp.wv, alpha, firsts)
-        if test == Test.NUM_TEXTURE_SAMPLES:
-            val = nsamp.to(f) / n_steps_max(max(vol_t.shape),
-                                            tf.sampling_factor)
-            color = torch.stack([val, val, val, torch.ones_like(val)], -1)
-            color = torch.where(inp.cov[..., None], color, 0.0)
-        zi = torch.zeros((H, W), dtype=torch.int32, device=lum.device)
-        return RenderOutput(color=color, depth=depth, num_volume_samples=nsamp,
-                            num_distance_samples=zi, num_empty_samples=zi,
-                            iterations=n_slabs)
+    depth = first_hit_depth(uniforms, proj_view_model, p_axis, inp.wu,
+                            inp.wv, alpha, firsts)
+    zi = torch.zeros(lum.shape, dtype=torch.int32, device=lum.device)
+    return RenderOutput(color=torch.stack([lum, lum, lum, alpha], -1),
+                        depth=depth, num_volume_samples=nsamp,
+                        num_distance_samples=zi, num_empty_samples=zi,
+                        iterations=n_slabs)
 
 
 def first_hit_depth(uniforms: FrameUniforms, proj_view_model, p_axis: int,

@@ -7,9 +7,11 @@ pixels — port of ``vkvolume_tpu/render/sweep_pallas.py``.
   cell. Left out: the frozen-envelope ``force`` tiers, the ``no_brick``
   re-plan (both serve the TPU compile cache and its retry chain) and the
   environment A/B knobs (their defaults are kept).
-* ``pack_frame_scalars`` / ``unpack_frame_scalars`` carry every per-pose
-  float through one float32 array, as in the JAX package: the frame sees
-  exactly the float32 values the JAX frame sees.
+* ``pack_frame_scalars`` / ``unpack_frame_scalars`` (``ray_setup.py``)
+  carry every per-pose float through one float32 array, as in the JAX
+  package: the frame sees exactly the float32 values the JAX frame sees.
+* ``read_plan`` reads a plan's frame fields for every caller;
+  ``brick_route`` says whether K1 takes the plan.
 * ``_frame_body`` routes the sweep as the JAX frame does: the brick sweep
   (K1, ``sweep_bricks.py``) when the plan sized a brick rect, every voxel
   plane gets a slab and the grid tiles by ``tile_h``; otherwise the
@@ -19,12 +21,11 @@ pixels — port of ``vkvolume_tpu/render/sweep_pallas.py``.
   ``RECT_A``, else the single-pass warp (K8) when it has ``R_warp``, else
   (a ``warp_xla`` plan) the gather warp in plain PyTorch, as the JAX
   package leaves it to XLA on every device.
-* The glue around the kernels (the w-grid, its fields, the pixel rays and
-  the warp's positions, the channel stack) is plain PyTorch (``w_grid``,
-  ``sweep_bricks.grid_fields``, ``make_rays``, ``pixel_grid_coords``,
-  ``warp_positions``), except on a CUDA frame of the brick sweep with a
-  two-pass or single-pass warp and its own pixel rays: there it is three
-  launches of ``frame_cuda``'s kernels (``glue_geometry``).
+* The glue (the grid fields, the warp's positions of the pose's pixel
+  rays, the channel stack) is ``frame_grid``, ``frame_positions`` and
+  ``frame_epilogue``: on CPU tensors their plain versions here, on CUDA
+  tensors the kernels of ``frame_cuda.py``. The positions of a caller's
+  pixel rays and K7's w-grid rays are plain PyTorch on every device.
 
 The closed-form intensity or gradient TF and the
 ``Test.NUM_TEXTURE_SAMPLES`` diagnostic (the benchmark mode's frame) run
@@ -48,6 +49,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import warnings
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -57,8 +59,10 @@ from ..utils import timing
 from . import frame_cuda
 from . import plan as plan_mod
 from . import sweep_bricks, sweep_slabs, warp_cuda
+from .frame_cuda import FrameGeometry, Positions
 from .ray_setup import (_SLICE_AXES, FrameUniforms, RaySetup, RenderOutput,
-                        make_rays, rays_from_dirs)
+                        make_rays, pack_frame_scalars, rays_from_dirs,
+                        unpack_frame_scalars)
 
 TILE_H = 8
 TILE_W = 128
@@ -132,10 +136,7 @@ def sweep_pallas(vol_t: torch.Tensor, occupancy_t: torch.Tensor | None, tf,
             f"vol_t shape {tuple(vol_t.shape)} image {H}x{W} violates "
             "kernel limits")
     n_slabs = int(max(2, round(vol_t.shape[0] * oversample)))
-    if occupancy_t is None:
-        occupancy_t = torch.zeros((1, 1, 1), dtype=torch.uint8,
-                                  device=vol_t.device)
-        dist_leap = False
+    occupancy_t, dist_leap = skip_map(occupancy_t, dist_leap, vol_t.device)
     if rays.entry is None or rays.exit is None:
         rays = dataclasses.replace(rays_from_dirs(uniforms, rays.ray_dir),
                                    valid=rays.valid,
@@ -537,52 +538,6 @@ def _plan_cost(pl):
     return c
 
 
-# Every per-pose float the frame consumes (uniform leaves + proj_view_model
-# + grid params + homography coefficients) in one flat float32 array.
-_UNIFORM_FIELDS = (
-    ("view", 16), ("proj", 16), ("view_proj_inv", 16), ("model", 16),
-    ("model_inv", 16), ("global_to_tex", 16), ("plane", 4),
-    ("plane_tex", 4), ("cam_pos_tex", 3), ("block_size", 3),
-    ("front_index", 1),
-)
-_N_UNIFORM = sum(n for _, n in _UNIFORM_FIELDS)            # 111
-N_PACKED = _N_UNIFORM + 16 + 6 + 9                          # + pvm, gp, hcoef
-
-
-def pack_frame_scalars(uniforms: FrameUniforms, pvm, gp,
-                       hcoef=None) -> np.ndarray:
-    """Flatten (uniforms, proj_view_model, grid_params, hcoef) into one
-    (N_PACKED,) float32 array (hcoef None → zeros)."""
-    parts = [np.asarray(getattr(uniforms, name), np.float32).ravel()
-             for name, _ in _UNIFORM_FIELDS]
-    parts.append(np.asarray(pvm, np.float32).ravel())
-    parts.append(np.asarray(gp, np.float32).ravel())
-    parts.append(np.zeros(9, np.float32) if hcoef is None
-                 else np.asarray(hcoef, np.float32).ravel())
-    out = np.concatenate(parts)
-    assert out.shape == (N_PACKED,), out.shape
-    return out
-
-
-def unpack_frame_scalars(arr: np.ndarray):
-    """Inverse of pack_frame_scalars: (uniforms, pvm, gp, hcoef), host
-    float32 numpy."""
-    vals = {}
-    off = 0
-    for name, n in _UNIFORM_FIELDS:
-        v = arr[off:off + n]
-        off += n
-        vals[name] = v.reshape(4, 4) if n == 16 else v
-    vals["front_index"] = np.int32(vals["front_index"][0])
-    u = FrameUniforms(**vals)
-    pvm = arr[off:off + 16].reshape(4, 4)
-    off += 16
-    gp = arr[off:off + 6]
-    off += 6
-    hcoef = arr[off:off + 9]
-    return u, pvm, gp, hcoef
-
-
 def _mob_fwd(w0, dw, c, x):
     """Möbius grid forward map w(ξ) (denominator positive over the grid)."""
     return w0 + dw * x / (1.0 - c * x)
@@ -690,42 +645,151 @@ def warp_positions(gx: torch.Tensor, gy: torch.Tensor, gp, hcoef, *,
     return xa, gy_t.contiguous()
 
 
-def _pixel_stage(chans: torch.Tensor, rays: RaySetup | None, gp, hcoef, tf,
-                 *, p_axis: int, Hi: int, RECT_A, R_warp, warp_variant: str,
-                 iterations: int, test: Test = Test.NONE,
-                 dim_max: int, H_total: int | None = None,
-                 row0: int = 0,
-                 positions: frame_cuda.Positions | None = None
-                 ) -> RenderOutput:
+class FramePlan(NamedTuple):
+    """A plan dict's frame fields (``read_plan``): ``gp`` is (wu0, dwu, cu,
+    wv0, dwv, cv), ``sgn`` +-1, ``R_brick`` None without a brick rect,
+    ``warp`` "A" / "B" (the two-pass warp's variant), "K8" or "gather"
+    (a ``warp_xla`` plan)."""
+    Hi: int
+    Wi: int
+    gp: tuple
+    sgn: int
+    tile_h: int
+    R_brick: int | None
+    rect_w: int
+    warp: str
+    hcoef: object
+
+
+def read_plan(plan: dict) -> FramePlan:
+    """The one reader of a plan dict's frame fields and their defaults."""
+    if plan["RECT_A"] is not None:
+        warp = plan.get("warp_variant", "A")
+    else:
+        warp = "K8" if plan["R_warp"] is not None else "gather"
+    return FramePlan(
+        Hi=plan["Hi"], Wi=plan["Wi"],
+        gp=(plan["wu0"], plan["dwu"], plan.get("cu", 0.0),
+            plan["wv0"], plan["dwv"], plan.get("cv", 0.0)),
+        sgn=1 if plan["sgn_p"] > 0 else -1, tile_h=plan.get("tile_h", 8),
+        R_brick=plan.get("R_brick"), rect_w=plan.get("rect_w", 256),
+        warp=warp, hcoef=plan.get("hcoef"))
+
+
+def brick_route(plan: dict, n_slabs: int, Np: int, ranks: int = 1) -> bool:
+    """Whether the brick sweep (K1) takes ``plan``: the plan sized a brick
+    rect, every one of the ``Np`` voxel planes gets a slab (the plan's
+    drift margins assume it) and each of ``ranks`` shards' grid rows tile
+    by ``tile_h``. Otherwise the frame takes the per-slab sweep (K7)."""
+    fp = read_plan(plan)
+    return (fp.R_brick is not None and n_slabs >= Np
+            and (fp.Hi // ranks) % fp.tile_h == 0)
+
+
+def frame_scalars(uniforms: FrameUniforms, proj_view_model,
+                  plan: dict) -> np.ndarray:
+    """``pack_frame_scalars`` of the pose and ``plan``'s grid and
+    homography: the ``packed`` array ``_frame_body`` takes."""
+    fp = read_plan(plan)
+    return pack_frame_scalars(uniforms, proj_view_model, fp.gp, fp.hcoef)
+
+
+def skip_map(occupancy_t: torch.Tensor | None, dist_leap: bool, device):
+    """(skip map, dist_leap): ``occupancy_t``, or for None the empty map
+    stand-in, which samples every slab and drives no leap."""
+    if occupancy_t is None:
+        return torch.zeros((1, 1, 1), dtype=torch.uint8, device=device), False
+    return occupancy_t, dist_leap
+
+
+def _positions_of(rays: RaySetup, gp, hcoef, geom: FrameGeometry, Hi: int,
+                  row0: int) -> Positions:
+    """The warp's positions of pixel rays ``rays``, rows from ``row0`` of
+    ``geom``'s image (a shard's), over a grid of ``Hi`` rows."""
+    gx, gy = pixel_grid_coords(rays, gp, geom.p_axis)
+    if geom.warp == "K8":
+        return Positions(gx, gy, None, None)
+    pos1, pos2 = warp_positions(gx, gy, gp, hcoef, Hi=Hi, Wi=geom.Wi,
+                                warp_variant=geom.warp,
+                                H_total=geom.height, row0=row0)
+    return Positions(gx, None, pos1, pos2)
+
+
+def grid_plain(geom: FrameGeometry, device) -> tuple:
+    """Plain version of ``frame_cuda.frame_grid``: (wu, wv, s_lo, s_hi,
+    kappa, cov), (Hi, Wi) each (``w_grid`` → ``grid_fields``)."""
+    uniforms, _, gp, _ = unpack_frame_scalars(geom.packed)
+    wu, wv = w_grid(gp, geom.Hi, geom.Wi, device, row0=geom.row0)
+    s_lo, s_hi, cov, kappa = sweep_bricks.grid_fields(
+        uniforms, wu, wv, geom.sgn, geom.p_axis, geom.dim_max, geom.n_slabs)
+    return wu, wv, s_lo, s_hi, kappa, cov
+
+
+def positions_plain(geom: FrameGeometry, device) -> Positions:
+    """Plain version of ``frame_cuda.frame_positions``, from the image's
+    own pixel rays (``make_rays``)."""
+    uniforms, _, gp, hcoef = unpack_frame_scalars(geom.packed)
+    rays = make_rays(uniforms, geom.height, geom.width, device)
+    return _positions_of(rays, gp, hcoef, geom, geom.Hi, 0)
+
+
+def epilogue_plain(geom: FrameGeometry, lum: torch.Tensor,
+                   alpha: torch.Tensor, firsts: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``frame_cuda.frame_epilogue``: the (3, Hi, Wi)
+    float32 stack [lum, alpha, depth] of K1's outputs (Hi, Wi) each."""
+    uniforms, pvm, gp, _ = unpack_frame_scalars(geom.packed)
+    wu, wv = w_grid(gp, geom.Hi, geom.Wi, lum.device, row0=geom.row0)
+    depth = sweep_bricks.first_hit_depth(uniforms, pvm, geom.p_axis, wu, wv,
+                                         alpha, firsts)
+    return torch.stack([lum, alpha, depth])
+
+
+def frame_grid(geom: FrameGeometry, device) -> tuple:
+    """The w-grid fields K1 reads. A CPU ``device`` runs the plain
+    version; a CUDA one launches the kernel."""
+    if torch.device(device).type == "cpu":
+        return grid_plain(geom, device)
+    return frame_cuda.frame_grid(geom, device)
+
+
+def frame_positions(geom: FrameGeometry, device) -> Positions:
+    """The warp's positions of the image's own pixel rays. A CPU
+    ``device`` runs the plain version; a CUDA one launches the kernel."""
+    if torch.device(device).type == "cpu":
+        return positions_plain(geom, device)
+    return frame_cuda.frame_positions(geom, device)
+
+
+def frame_epilogue(geom: FrameGeometry, lum: torch.Tensor,
+                   alpha: torch.Tensor, firsts: torch.Tensor) -> torch.Tensor:
+    """The channel stack from K1's outputs. CPU tensors run the plain
+    version; CUDA tensors launch the kernel."""
+    if lum.device.type == "cpu":
+        return epilogue_plain(geom, lum, alpha, firsts)
+    return frame_cuda.frame_epilogue(geom, lum, alpha, firsts)
+
+
+def _pixel_stage(chans: torch.Tensor, positions: Positions, depth_init, *,
+                 tf, warp: str, iterations: int, test: Test = Test.NONE,
+                 dim_max: int) -> RenderOutput:
     """Warp of the (C, Hi, Wi) grid channels (lum, alpha, depth, and the
     sample count under ``Test.NUM_TEXTURE_SAMPLES``) to pixels by the
-    plan's warp — two-pass (``RECT_A``), single-pass K8 (``R_warp``) or the
-    gather warp (neither: a ``warp_xla`` plan) — then the pixel-space
-    outputs. ``rays`` may be a shard's image rows, from ``row0`` of an
-    ``H_total``-row image (``warp_positions``). ``positions``: the warp's
-    positions made by ``frame_cuda.frame_positions`` from the pose (then
-    ``rays`` is None, and the initial depth 0)."""
+    plan's ``warp`` (``FramePlan``: K2 twice, K8 or the gather warp) at
+    the warp's ``positions``, then the pixel-space outputs; ``depth_init``
+    is the depth of the pixels the volume leaves uncovered."""
     with timing.span("vkv.frame.warp"):
-        if positions is None:
-            gx, gy = pixel_grid_coords(rays, gp, p_axis)
-            if RECT_A is not None:
-                pos1, pos2 = warp_positions(gx, gy, gp, hcoef, Hi=Hi,
-                                            Wi=chans.shape[2],
-                                            warp_variant=warp_variant,
-                                            H_total=H_total, row0=row0)
-        else:
-            gx, gy, pos1, pos2 = positions
+        gx, gy, pos1, pos2 = positions
         H, W = gx.shape
-        if RECT_A is not None:
+        if warp in ("A", "B"):
             # u16-encoded warp: lum/alpha/depth live in [0, 1] (depth is
             # reverse-Z clip depth; no-hit pixels are overwritten below); the
             # sample count is an integer far below 65535 (at most n_slabs),
             # warped at scale 1.
             scales = ([65535.0] * 3 + [1.0])[:chans.shape[0]]
-            warp = (warp_cuda.warp_two_pass_b if warp_variant == "B"
-                    else warp_cuda.warp_two_pass)
-            warped = warp(chans, pos1, pos2, scales=scales)[:, :H, :]
-        elif R_warp is not None:
+            two_pass = (warp_cuda.warp_two_pass_b if warp == "B"
+                        else warp_cuda.warp_two_pass)
+            warped = two_pass(chans, pos1, pos2, scales=scales)[:, :H, :]
+        elif warp == "K8":
             warped = warp_cuda.warp_to_pixels(chans, gx.contiguous(),
                                               gy.contiguous())
         else:
@@ -733,8 +797,7 @@ def _pixel_stage(chans: torch.Tensor, rays: RaySetup | None, gp, hcoef, tf,
     with timing.span("vkv.frame.pixels"):
         lum, alpha, depth = warped[0], warped[1], warped[2]
         covered = gx > -5.0
-        depth = torch.where(covered & (alpha > 0.0), depth,
-                            0.0 if rays is None else rays.depth_init)
+        depth = torch.where(covered & (alpha > 0.0), depth, depth_init)
         color = torch.stack([lum, lum, lum, alpha], -1)
         zi = torch.zeros((H, W), dtype=torch.int32, device=chans.device)
         nsamp = zi
@@ -749,133 +812,100 @@ def _pixel_stage(chans: torch.Tensor, rays: RaySetup | None, gp, hcoef, tf,
                             iterations=iterations)
 
 
-def glue_geometry(packed: np.ndarray, *, p_axis: int, sgn_p: float, Hi: int,
-                  Wi: int, height: int, width: int, RECT_A,
-                  warp_variant: str, vol_shape, n_slabs: int
-                  ) -> frame_cuda.FrameGeometry:
-    """What ``frame_cuda``'s kernels compute a frame's glue from: the
-    pose's ``packed`` scalars and the plan's integers, as
-    ``_frame_body`` passes them."""
-    return frame_cuda.FrameGeometry(
-        packed, p_axis=p_axis, sgn=1 if sgn_p > 0 else -1, Hi=Hi, Wi=Wi,
-        height=height, width=width,
-        warp=warp_variant if RECT_A is not None else "K8",
-        dim_max=max(vol_shape), n_slabs=n_slabs)
-
-
-def _frame_body(vol_t: torch.Tensor, occupancy_t: torch.Tensor, tf,
-                packed: np.ndarray, *, p_axis: int, Hi: int, Wi: int,
-                R_warp, ert: bool, n_slabs: int, sgn_p: float,
-                dist_leap: bool, RECT_A, tile_h: int, R_brick, height: int,
-                width: int, warp_variant: str = "A", rect_w: int = 256,
-                grad_t: torch.Tensor | None = None,
-                test: Test = Test.NONE,
-                texture_tf: bool = False, return_chans: bool = False,
-                rays: RaySetup | None = None, shard=None):
-    """One frame: pixel rays → w-grid fields → sweep (K1, or K7) → channel
-    stack → warp (K2 twice, K8, or the gather warp) → pixel outputs.
-    ``packed`` is pack_frame_scalars' array; ``grad_t`` the gradient map
-    transposed like ``vol_t`` (gradient TFs); ``texture_tf`` the TF
-    through the baked texture (K1 only). ``return_chans``: stop before the
-    pixel stage and return its inputs (channel stack, pixel rays, sweep
-    iterations), as the JAX frame's ``return_chans`` does for
-    ``stage_breakdown``. ``rays``: the pixel rays of the warp (the
-    caller's, ``render_frame``), by default this pose's (``make_rays``).
+def _frame_body(vol_t: torch.Tensor, occupancy_t: torch.Tensor | None, tf,
+                packed: np.ndarray, plan: dict, *, p_axis: int, ert: bool,
+                n_slabs: int, dist_leap: bool, height: int, width: int,
+                grad_t: torch.Tensor | None = None, test: Test = Test.NONE,
+                texture_tf: bool = False, rays: RaySetup | None = None,
+                shard=None, return_chans: bool = False):
+    """One frame of ``plan``: the warp's positions → the sweep (K1, or K7)
+    → the channel stack → the warp (K2 twice, K8, or the gather warp) →
+    pixel outputs. ``packed`` is ``frame_scalars``' array; ``occupancy_t``
+    None samples every slab; ``grad_t`` the gradient map transposed like
+    ``vol_t``; ``texture_tf`` the TF through the baked texture (K1 only).
+    The positions come from the pose (``frame_positions``), or from the
+    pixel rays a caller hands in (``rays``: ``render_frame``; with
+    ``shard``, its rows of a ``height``-row image). Under
+    ``Test.NUM_TEXTURE_SAMPLES`` the stack is the JAX frame's: the count
+    colour, the coverage, the depth and the sample count.
 
     ``shard`` (``parallel.Mesh``; ``render_frame_sharded``): this rank
-    sweeps its ``Hi / size`` contiguous grid rows, one all-gather rebuilds
-    the grid, and the warp runs on the rank's pixel rows, which ``rays``
-    then holds (of a ``height``-row image).
-
-    A CUDA frame of the brick sweep with a two-pass or single-pass warp
-    makes its own pixel rays: there the glue around K1 and K2 is
-    ``frame_cuda``'s three kernels, from ``packed`` by value, with no copy
-    to the card and no wait. The other routes (the per-slab sweep, the
-    gather warp, a shard, the caller's rays, ``return_chans``, the sample
-    count test) and the CPU run the plain glue, the kernels' twins."""
+    sweeps its ``Hi / size`` contiguous grid rows and one all-gather
+    rebuilds the grid. ``return_chans``: stop before the pixel stage and
+    return its positional arguments, as the JAX frame's ``return_chans``
+    does for ``stage_breakdown``."""
     uniforms, pvm, gp, hcoef = unpack_frame_scalars(packed)
+    fp = read_plan(plan)
     dev = vol_t.device
+    occupancy_t, dist_leap = skip_map(occupancy_t, dist_leap, dev)
     n, r = (1, 0) if shard is None else (shard.size, shard.rank)
-    Hi_loc = Hi // n
-    brick = (R_brick is not None and n_slabs >= vol_t.shape[0]
-             and Hi_loc % tile_h == 0)
-    if (dev.type == "cuda" and brick
-            and (RECT_A is not None or R_warp is not None)
-            and shard is None and rays is None and not return_chans
-            and test == Test.NONE):
-        geom = glue_geometry(packed, p_axis=p_axis, sgn_p=sgn_p, Hi=Hi,
-                             Wi=Wi, height=height, width=width,
-                             RECT_A=RECT_A, warp_variant=warp_variant,
-                             vol_shape=vol_t.shape, n_slabs=n_slabs)
-        with timing.span("vkv.frame.rays"):
-            positions = frame_cuda.frame_positions(geom, dev)
-        with timing.span("vkv.frame.grid_fields"):
-            grid = frame_cuda.frame_grid(geom, dev)
+    brick = brick_route(plan, n_slabs, vol_t.shape[0], n)
+    if not brick and (fp.rect_w > 256 or texture_tf):
+        # Only the brick sweep has wide rects (the per-slab sweep's
+        # footprint limits assume 256 lanes) and the texture-TF variant;
+        # the engine sends such frames here only when K1 takes them.
+        raise PallasUnsupported("a wide-rect plan or the texture TF needs "
+                                "the brick sweep")
+    Hi_loc = fp.Hi // n
+    dim_max = max(vol_t.shape)
+    geom = FrameGeometry(
+        packed, p_axis=p_axis, sgn=fp.sgn, Hi=Hi_loc, Wi=fp.Wi,
+        height=height, width=width,
+        warp="K8" if fp.warp == "gather" else fp.warp, dim_max=dim_max,
+        n_slabs=n_slabs, row0=r * Hi_loc)
+    num_test = test == Test.NUM_TEXTURE_SAMPLES
+    with timing.span("vkv.frame.rays"):
+        if rays is None:
+            positions, depth_init = frame_positions(geom, dev), 0.0
+        else:
+            positions = _positions_of(rays, gp, hcoef, geom, fp.Hi,
+                                      r * rays.valid.shape[0])
+            depth_init = rays.depth_init
+    with timing.span("vkv.frame.grid_fields"):
+        if brick:
+            grid = frame_grid(geom, dev)
+        else:
+            wu_g, wv_g = w_grid(gp, Hi_loc, fp.Wi, dev, row0=geom.row0)
+            g_rays = grid_rays(uniforms, wu_g, wv_g, p_axis, fp.sgn)
+    if brick:
         with timing.span("vkv.frame.brick_inputs"):
             inp = sweep_bricks.brick_inputs(
                 vol_t, occupancy_t, tf, uniforms, grid, p_axis=p_axis,
-                ert=ert, count_samples=False, n_slabs=n_slabs, sgn=geom.sgn,
-                tile_h=tile_h, dist_leap=dist_leap, grad_t=grad_t,
-                texture_tf=texture_tf)
-        lum, alpha, firsts, _ = sweep_bricks.sweep_bricks_kernel(inp)
-        with timing.span("vkv.frame.epilogue"):
-            chans = frame_cuda.frame_epilogue(geom, lum, alpha, firsts)
-        return _pixel_stage(chans, None, gp, hcoef, tf, p_axis=p_axis, Hi=Hi,
-                            RECT_A=RECT_A, R_warp=R_warp,
-                            warp_variant=warp_variant, iterations=n_slabs,
-                            dim_max=max(vol_t.shape), positions=positions)
-    with timing.span("vkv.frame.rays"):
-        if rays is None:
-            rays = make_rays(uniforms, height, width, dev)
-        wu_g, wv_g = w_grid(gp, Hi_loc, Wi, dev, row0=r * Hi_loc)
-    sgn = 1 if sgn_p > 0 else -1
-    num_test = test == Test.NUM_TEXTURE_SAMPLES
-    # The brick sweep whenever the plan proved its rect feasible and every
-    # voxel plane gets a slab (the plan's drift margins assume it);
-    # otherwise the per-slab sweep.
-    if brick:
-        with timing.span("vkv.frame.grid_fields"):
-            s_lo, s_hi, cov, kappa = sweep_bricks.grid_fields(
-                uniforms, wu_g, wv_g, sgn, p_axis, max(vol_t.shape), n_slabs)
-        grid_out = sweep_bricks.sweep_bricks(
-            vol_t, occupancy_t, tf, uniforms, pvm,
-            (wu_g, wv_g, s_lo, s_hi, kappa, cov), p_axis=p_axis, ert=ert,
-            count_samples=num_test, n_slabs=n_slabs, sgn=sgn, tile_h=tile_h,
-            dist_leap=dist_leap, grad_t=grad_t, texture_tf=texture_tf,
-            test=test)
+                ert=ert, count_samples=num_test, n_slabs=n_slabs,
+                sgn=fp.sgn, tile_h=fp.tile_h, dist_leap=dist_leap,
+                grad_t=grad_t, texture_tf=texture_tf)
+        lum, alpha, firsts, nsamp = sweep_bricks.sweep_bricks_kernel(inp)
+        iterations = n_slabs
     else:
-        if rect_w > 256:
-            # The grid was sized for a wide brick rect; the per-slab
-            # sweep's footprint limits assume 256 lanes.
-            raise PallasUnsupported("a wide-rect plan needs the brick sweep")
-        if texture_tf:
-            # Only the brick sweep has the texture-TF variant; the engine
-            # sends texture frames here only when its plan takes K1.
-            raise PallasUnsupported("the texture TF needs the brick sweep")
-        with timing.span("vkv.frame.grid_fields"):
-            g_rays = grid_rays(uniforms, wu_g, wv_g, p_axis, sgn_p)
+        # K7 and its depth epilogue.
         grid_out = sweep_slabs.sweep_slabs(
             vol_t, occupancy_t, tf, g_rays, uniforms, pvm,
             grad_t, p_axis=p_axis, ert=ert, test=test,
             count_samples=num_test, n_slabs=n_slabs, separable=True,
             dist_leap=dist_leap)
+        iterations = grid_out.iterations
     with timing.span("vkv.frame.epilogue"):
-        chans = [grid_out.color[..., 0], grid_out.color[..., 3],
-                 grid_out.depth]
-        if num_test:
-            chans.append(grid_out.num_volume_samples.to(torch.float32))
-        chans = torch.stack(chans)
+        f = torch.float32
+        if brick:
+            chans = frame_epilogue(geom, lum, alpha, firsts)
+            if num_test:
+                val = nsamp.to(f) / sweep_bricks.n_steps_max(
+                    dim_max, tf.sampling_factor)
+                chans = torch.stack([torch.where(inp.cov, val, 0.0),
+                                     inp.cov.to(f), chans[2], nsamp.to(f)])
+        else:
+            chans = [grid_out.color[..., 0], grid_out.color[..., 3],
+                     grid_out.depth]
+            if num_test:
+                chans.append(grid_out.num_volume_samples.to(f))
+            chans = torch.stack(chans)
     if shard is not None:
         # The frame's one collective: the full grid from every rank's rows.
         chans = shard.all_gather(chans, dim=1)
     if return_chans:
-        return chans, rays, grid_out.iterations
-    return _pixel_stage(chans, rays, gp, hcoef, tf,
-                        p_axis=p_axis, Hi=Hi, RECT_A=RECT_A, R_warp=R_warp,
-                        warp_variant=warp_variant,
-                        iterations=grid_out.iterations, test=test,
-                        dim_max=max(vol_t.shape), H_total=height,
-                        row0=r * rays.valid.shape[0])
+        return chans, positions, depth_init
+    return _pixel_stage(chans, positions, depth_init, tf=tf, warp=fp.warp,
+                        iterations=iterations, test=test, dim_max=dim_max)
 
 
 def render_frame(vol_t: torch.Tensor, occupancy_t: torch.Tensor | None, tf,
@@ -914,23 +944,11 @@ def render_planned(vol_t: torch.Tensor, occupancy_t: torch.Tensor | None, tf,
     dict, or one with another warp variant from
     ``plan.two_pass_warp_plan``) for the pixel rays ``rays`` — a shard's
     rows of a ``height``-row image with ``shard`` (``_frame_body``)."""
-    if height is None:
-        height = rays.valid.shape[0]
-    if occupancy_t is None:
-        occupancy_t = torch.zeros((1, 1, 1), dtype=torch.uint8,
-                                  device=vol_t.device)
-        dist_leap = False
-    gp = [plan["wu0"], plan["dwu"], plan.get("cu", 0.0),
-          plan["wv0"], plan["dwv"], plan.get("cv", 0.0)]
-    packed = pack_frame_scalars(uniforms, proj_view_model, gp,
-                                plan.get("hcoef"))
     return _frame_body(
-        vol_t, occupancy_t, tf, packed, p_axis=p_axis, Hi=plan["Hi"],
-        Wi=plan["Wi"], R_warp=plan["R_warp"], ert=ert,
-        n_slabs=int(max(2, round(vol_t.shape[0] * oversample))),
-        sgn_p=plan["sgn_p"], dist_leap=dist_leap, RECT_A=plan["RECT_A"],
-        tile_h=plan.get("tile_h", 8), R_brick=plan.get("R_brick"),
-        height=height, width=rays.valid.shape[1],
-        warp_variant=plan.get("warp_variant", "A"),
-        rect_w=plan.get("rect_w", 256), grad_t=grad_t, test=test,
+        vol_t, occupancy_t, tf,
+        frame_scalars(uniforms, proj_view_model, plan), plan, p_axis=p_axis,
+        ert=ert, n_slabs=int(max(2, round(vol_t.shape[0] * oversample))),
+        dist_leap=dist_leap,
+        height=rays.valid.shape[0] if height is None else height,
+        width=rays.valid.shape[1], grad_t=grad_t, test=test,
         texture_tf=texture_tf, rays=rays, shard=shard)

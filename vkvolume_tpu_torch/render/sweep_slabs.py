@@ -413,35 +413,34 @@ def sweep_slabs(vol_t: torch.Tensor, occupancy_t: torch.Tensor, tf: TFParams,
                       n_slabs=n_slabs, dist_leap=dist_leap,
                       separable=separable)
     lum, alpha, firsts, nsamp = sweep_slabs_kernel(inp)
-    with timing.span("vkv.frame.epilogue"):
-        p = inp.params
-        v_ax, u_ax = _SLICE_AXES[p_axis]
-        H, W = lum.shape
-        f = torch.float32
-        dev = lum.device
-        color = torch.stack([lum, lum, lum, alpha], -1)
-        # Depth from the first contributing slab.
-        hit = (alpha > 0.0) & (firsts < 1.5)
-        t_hit = firsts - p["o_p"]
-        pen_xyz = [None, None, None]
-        pen_xyz[p_axis] = firsts
-        pen_xyz[u_ax] = p["o_u"] + inp.wu * t_hit
-        pen_xyz[v_ax] = p["o_v"] + inp.wv * t_hit
-        pen = torch.stack(pen_xyz, -1) - 0.5
-        pen_h = torch.cat([pen, torch.ones((H, W, 1), dtype=f, device=dev)],
-                          -1)
-        pvm = torch.as_tensor(np.asarray(proj_view_model, np.float32),
-                              device=dev)
-        pen_clip = pen_h @ pvm.T
-        w = pen_clip[..., 3]
-        pen_depth = pen_clip[..., 2] / torch.where(w == 0, 1.0, w)
-        depth = torch.where(hit, pen_depth, rays.depth_init)
-        if num_test:
-            val = nsamp.to(f) / n_steps_max(max(vol_t.shape),
-                                            tf.sampling_factor)
-            color = torch.stack([val, val, val, torch.ones_like(val)], -1)
-            color = torch.where(inp.cov[..., None], color, 0.0)
-        zi = torch.zeros((H, W), dtype=torch.int32, device=dev)
-        return RenderOutput(color=color, depth=depth, num_volume_samples=nsamp,
-                            num_distance_samples=zi, num_empty_samples=zi,
-                            iterations=n_slabs)
+    p = inp.params
+    v_ax, u_ax = _SLICE_AXES[p_axis]
+    H, W = lum.shape
+    f = torch.float32
+    dev = lum.device
+    color = torch.stack([lum, lum, lum, alpha], -1)
+    # Depth from the first contributing slab.
+    hit = (alpha > 0.0) & (firsts < 1.5)
+    t_hit = firsts - p["o_p"]
+    pen_xyz = [None, None, None]
+    pen_xyz[p_axis] = firsts
+    pen_xyz[u_ax] = p["o_u"] + inp.wu * t_hit
+    pen_xyz[v_ax] = p["o_v"] + inp.wv * t_hit
+    pen = torch.stack(pen_xyz, -1) - 0.5
+    pen_h = torch.cat([pen, torch.ones((H, W, 1), dtype=f, device=dev)],
+                      -1)
+    pvm = torch.as_tensor(np.asarray(proj_view_model, np.float32),
+                          device=dev)
+    pen_clip = pen_h @ pvm.T
+    w = pen_clip[..., 3]
+    pen_depth = pen_clip[..., 2] / torch.where(w == 0, 1.0, w)
+    depth = torch.where(hit, pen_depth, rays.depth_init)
+    if num_test:
+        val = nsamp.to(f) / n_steps_max(max(vol_t.shape),
+                                        tf.sampling_factor)
+        color = torch.stack([val, val, val, torch.ones_like(val)], -1)
+        color = torch.where(inp.cov[..., None], color, 0.0)
+    zi = torch.zeros((H, W), dtype=torch.int32, device=dev)
+    return RenderOutput(color=color, depth=depth, num_volume_samples=nsamp,
+                        num_distance_samples=zi, num_empty_samples=zi,
+                        iterations=n_slabs)
