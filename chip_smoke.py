@@ -21,11 +21,13 @@ full-scale synthetic stag beetle (494x832x832 u8) into bench.py's engine
      other work on the card; the frame glue's three kernels at the frame's
      pose, the grid fields bit-exact, the warp's positions within 2e-5
      relative, the epilogue's lum and alpha exact and its depth within
-     1e-6) and times both, K2 beside one ``grid_sample`` per pass;
+     1e-6; K1's map inputs bit-exact at the frame's map and at the
+     kingsnake cell's) and times both, K2 beside one ``grid_sample`` per
+     pass;
   3. with every launch counter at 0, re-runs the TF edit and renders the
      benchmark pose at 1920x1080 (20 frames x 5 reps, CUDA events), then
      checks that K1-K4 and the occupancy kernel launched, the frame glue's
-     kernels once a frame, the plan took
+     kernels and K1's map inputs once a frame, the plan took
      the brick sweep and the two-pass warp, the frame has content, and it
      matches the plain-PyTorch frame on the card;
   4. with every launch counter at 0, runs the CLI's default render in this
@@ -332,6 +334,12 @@ OPS_GRID_CELL, OPS_PIXEL_RAY, OPS_POSITION, OPS_EPILOGUE_CELL = 92, 126, 41, 37
 # where both cover the pixel, coverage differing on at most GLUE_COVER of
 # them; the epilogue's depth within GLUE_DEPTH_TOL.
 GLUE_POS_RTOL, GLUE_COVER, GLUE_DEPTH_TOL = 2e-5, 1e-4, 1e-6
+# K1's map inputs (frame_glue.cu brick_maps): per map cell a load and a
+# MIN. The kingsnake cell's map along its pose's slice axis (z): the
+# (199, 256, 256) map of the 795 x 1024 x 1024 volume at block 4, and the
+# slab count of its gradient TF's density at sampling factor 1.
+OPS_MAP_CELL = 2
+SNAKE_MAP, SNAKE_VOLUME, SNAKE_SLABS = (199, 256, 256), (795, 1024, 1024), 1024
 
 
 def bound(nbytes: float, ops: float) -> dict:
@@ -670,6 +678,13 @@ def phase_kernels(eng, cam, timer):
         f"samples={int(n_k.sum())}")
     rows.update(glue_rows(eng, cam, sweep_bricks.sweep_bricks_kernel(inp)[:3],
                           timer))
+    rows["brick_maps"] = brick_maps_row(occ_t, vol_t.shape, n_slabs, timer,
+                                        "bench.py's beetle map")
+    g = torch.Generator(device=dev).manual_seed(0)
+    snake_occ = torch.randint(0, 6, SNAKE_MAP, generator=g, device=dev,
+                              dtype=torch.uint8)
+    rows["brick_maps snake"] = brick_maps_row(
+        snake_occ, SNAKE_VOLUME, SNAKE_SLABS, timer, "the kingsnake's map")
 
     # K2 on the frame's pass positions and channels, u16 and f32.
     grid_out = sweep_bricks.sweep_bricks(vol_t, occ_t, eng._tf(v), u, pvm,
@@ -834,6 +849,35 @@ def glue_rows(eng, cam, k1_out, timer) -> dict:
         + ", ".join(f"{k} {rows[k]['ms']:.4f} (plain {rows[k]['plain_ms']:.4f}"
                     f", bound {rows[k]['bound_ms']:.4f})" for k in rows))
     return rows
+
+
+def brick_maps_row(occ_t, vol_shape, n_slabs: int, timer, what: str) -> dict:
+    """K1's map inputs (``frame_cuda.brick_maps``) from the u8 distance map
+    ``occ_t`` on the card against their twin on a CPU copy, bit for bit,
+    and their row (timed; plain ms: the twin on the card; bytes: the map
+    read once, both padded maps and the range written once)."""
+    import torch
+    from vkvolume_tpu_torch.render import frame_cuda
+    from vkvolume_tpu_torch.render.sweep_bricks import (CoarseShape,
+                                                        brick_maps_plain)
+
+    shape = CoarseShape.of(tuple(occ_t.shape), tuple(vol_shape))
+    got = frame_cuda.brick_maps(occ_t, shape, n_slabs, True)
+    want = brick_maps_plain(occ_t.cpu(), shape, n_slabs, True)
+    for name, g, w in zip(("coarse", "cskip", "kb_occ"), got, want):
+        assert torch.equal(g.cpu(), w), f"brick_maps {name} ({what})"
+    nbytes = occ_t.numel() + sum(t.numel() * t.element_size() for t in got)
+    row = dict(
+        max_abs_err=0.0,
+        ms=timer(lambda: frame_cuda.brick_maps(occ_t, shape, n_slabs, True),
+                 20),
+        plain_ms=timer(lambda: brick_maps_plain(occ_t, shape, n_slabs, True),
+                       5),
+        **bound(nbytes, OPS_MAP_CELL * occ_t.numel()))
+    log(f"phase 2: brick_maps ({what}, {tuple(occ_t.shape)}, n_slabs "
+        f"{n_slabs}, kb_occ {got[2].tolist()}): bit-exact, {row['ms']:.4f} "
+        f"ms (plain {row['plain_ms']:.4f}, bound {row['bound_ms']:.4f})")
+    return row
 
 
 def warp_pair(variant: str):
@@ -1015,16 +1059,18 @@ def read_launches():
 
 @contextlib.contextmanager
 def plain_kernels():
-    """K1, K2, K7, K8 and the frame glue's kernels swapped for their plain
-    versions inside the block."""
+    """K1, K2, K7, K8, the frame glue's kernels and K1's map inputs
+    swapped for their plain versions inside the block."""
     from vkvolume_tpu_torch.render import (sweep_bricks, sweep_frame,
                                            sweep_slabs, warp_cuda)
 
     saved = (sweep_bricks.sweep_bricks_kernel, warp_cuda.warp_two_pass,
              warp_cuda.warp_two_pass_b, sweep_slabs.sweep_slabs_kernel,
              warp_cuda.warp_to_pixels, sweep_frame.frame_grid,
-             sweep_frame.frame_positions, sweep_frame.frame_epilogue)
+             sweep_frame.frame_positions, sweep_frame.frame_epilogue,
+             sweep_bricks.brick_maps)
     sweep_bricks.sweep_bricks_kernel = sweep_bricks.sweep_bricks_reference
+    sweep_bricks.brick_maps = sweep_bricks.brick_maps_plain
     warp_cuda.warp_two_pass = warp_cuda.warp_two_pass_plain
     warp_cuda.warp_two_pass_b = warp_cuda.warp_two_pass_b_plain
     sweep_slabs.sweep_slabs_kernel = sweep_slabs.sweep_slabs_plain
@@ -1038,7 +1084,8 @@ def plain_kernels():
         (sweep_bricks.sweep_bricks_kernel, warp_cuda.warp_two_pass,
          warp_cuda.warp_two_pass_b, sweep_slabs.sweep_slabs_kernel,
          warp_cuda.warp_to_pixels, sweep_frame.frame_grid,
-         sweep_frame.frame_positions, sweep_frame.frame_epilogue) = saved
+         sweep_frame.frame_positions, sweep_frame.frame_epilogue,
+         sweep_bricks.brick_maps) = saved
 
 
 def plain_frame(eng, cam, width=WIDTH, height=HEIGHT):
@@ -1102,7 +1149,7 @@ def phase_frame(eng, cam):
         "a kernel of the path never ran"
     assert launches["K1 walk"] == launches["K1"]
     assert all(launches[k] == launches["K1"] for k in (
-        "frame_grid", "frame_positions", "frame_epilogue")), \
+        "frame_grid", "frame_positions", "frame_epilogue", "brick_maps")), \
         "the frame glue's kernels ran other than once a frame"
 
     pose, _, _ = frame_pose(eng, cam)
@@ -3449,6 +3496,14 @@ def main() -> int:
                     "vkvolume_tpu_torch/csrc/frame_glue.cu",
                     "none (XLA: vkvolume_tpu/render/sweep_pallas.py:1546 "
                     "_frame_body, :1672 _pixel_stage)")
+    for k, what in (("brick_maps", "bench.py's beetle map, 124x208x208"),
+                    ("brick_maps snake", "the kingsnake cell's map, "
+                     "199x256x256")):
+        where[k] = (f"brick_maps_kernel + brick_range_kernel (K1's map "
+                    f"inputs; {what})", launches["brick_maps"],
+                    "vkvolume_tpu_torch/csrc/frame_glue.cu",
+                    "none (XLA: vkvolume_tpu/render/sweep_bricks.py:591 "
+                    "_sweep_bricks_jit's prologue)")
     for k in matrix_rows:
         if k.endswith("no leap"):
             brick = k.startswith("K1")

@@ -1,5 +1,6 @@
 """The frame glue's kernels (``csrc/frame_glue.cu``, ``render/frame_cuda.py``)
-against their plain twins (``render/sweep_frame.py``) on the same CUDA
+against their plain twins (``render/sweep_frame.py``, and
+``sweep_bricks.brick_maps_plain`` for K1's map inputs) on the same
 tensors, and the w-grid frame that runs them on every route. Marked
 ``cuda``: they skip without a CUDA device. On a machine with a card and
 without JAX (from the repository's root):
@@ -28,7 +29,11 @@ Tolerances:
 * the epilogue's depth: 1e-6, for the same reason (its clip position);
 * the whole frame: at most 0.01 % of the pixels beyond 8/255 of the frame
   the plain glue draws (the twins swapped in for the kernels), and the
-  sample counts within one on at most 0.01 % of the pixels.
+  sample counts within one on at most 0.01 % of the pixels;
+* K1's map inputs (``brick_maps``: bytes and integers), over the maps of
+  ``torch_brick_map_cases`` and the engine's at skipmodes 0-3: bit for
+  bit, and so is every frame drawn with them against the same frame drawn
+  with their twin.
 """
 
 import contextlib
@@ -40,7 +45,7 @@ import pytest
 import torch
 
 from vkvolume_tpu_torch import cli
-from vkvolume_tpu_torch.bench.harness import benchmark_camera
+from vkvolume_tpu_torch.bench.harness import benchmark_camera, make_engine
 from vkvolume_tpu_torch.camera import fit_distance, orbit_camera
 from vkvolume_tpu_torch.engine import (Engine, RenderOptions, SkippingType,
                                        VolumeOptions, from_array)
@@ -49,6 +54,10 @@ from vkvolume_tpu_torch.render import (frame_cuda, sweep_bricks,
                                        sweep_frame, sweep_slabs, warp_cuda)
 from vkvolume_tpu_torch.render.ray_setup import (make_rays,
                                                  unpack_frame_scalars)
+from vkvolume_tpu_torch.render.sweep_bricks import (CoarseShape,
+                                                    brick_maps_plain)
+from torch_brick_map_cases import (CONTENTS, SHAPES, SLABS, case_map,
+                                   case_slabs)
 
 pytestmark = pytest.mark.cuda
 
@@ -207,7 +216,8 @@ def test_one_launch_of_each_per_frame(engine, frames):
         engine.render(cam, SIZE, SIZE)
     torch.cuda.synchronize()
     assert {k: frame_cuda.LAUNCHES[k] - before[k] for k in before} == {
-        "frame_grid": 3, "frame_positions": 3, "frame_epilogue": 3}
+        "frame_grid": 3, "frame_positions": 3, "frame_epilogue": 3,
+        "brick_maps": 3}
     assert sweep_bricks.LAUNCHES["sweep_bricks"] - k1 == 3
     assert warp_cuda.LAUNCHES["resample_rows"] - k2 == 6
 
@@ -227,6 +237,17 @@ def test_no_sync_inside_the_frame(engine, frames):
 
 
 @contextlib.contextmanager
+def _twin_maps():
+    """K1's map inputs swapped for their plain version."""
+    saved = sweep_bricks.brick_maps
+    sweep_bricks.brick_maps = brick_maps_plain
+    try:
+        yield
+    finally:
+        sweep_bricks.brick_maps = saved
+
+
+@contextlib.contextmanager
 def _plain_glue():
     """The frame's glue functions swapped for their plain versions."""
     saved = [getattr(sweep_frame, n) for n in GLUE]
@@ -235,7 +256,8 @@ def _plain_glue():
                               sweep_frame.epilogue_plain)):
         setattr(sweep_frame, n, twin)
     try:
-        yield
+        with _twin_maps():
+            yield
     finally:
         for n, fn in zip(GLUE, saved):
             setattr(sweep_frame, n, fn)
@@ -397,3 +419,90 @@ def test_gather_warp_frame_takes_the_glue_kernels():
         plain = eng.render(cam, 256, 256)
     torch.cuda.synchronize()
     _hold_to_plain("gather warp", fused, plain)
+
+
+def _equal_frames(name, got, want):
+    for field in ("color", "depth", "num_volume_samples"):
+        a, b = getattr(got, field), getattr(want, field)
+        assert torch.equal(a, b), f"{name}: {field} differs on " \
+            f"{int((a != b).sum())} entries"
+    assert got.iterations == want.iterations
+
+
+@pytest.mark.parametrize("content", CONTENTS)
+@pytest.mark.parametrize("slabs", SLABS)
+@pytest.mark.parametrize("dist_leap", [True, False])
+@pytest.mark.parametrize("name", SHAPES)
+def test_brick_maps_bit_exact(engine, name, dist_leap, slabs, content):
+    """The kernel's coarse, cskip and kb_occ against the plain twin's on a
+    CPU copy, one counted call each."""
+    map_shape, vol_shape = SHAPES[name]
+    occ = torch.from_numpy(case_map(map_shape, content))
+    n_slabs = case_slabs(vol_shape, slabs)
+    shape = CoarseShape.of(map_shape, vol_shape)
+    before = dict(frame_cuda.LAUNCHES)
+    got = frame_cuda.brick_maps(occ.to(_dev(engine)), shape, n_slabs,
+                                dist_leap)
+    assert frame_cuda.LAUNCHES == dict(
+        before, brick_maps=before["brick_maps"] + 1)
+    want = brick_maps_plain(occ, shape, n_slabs, dist_leap)
+    for what, g, w in zip(("coarse", "cskip", "kb_occ"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, what
+        g = g.cpu()
+        assert torch.equal(g, w), f"{what}: {int((g != w).sum())} differ"
+
+
+@pytest.mark.parametrize("bad,match", [("int16", "uint8"),
+                                       ("strided", "contiguous"),
+                                       ("shape", "shape")])
+def test_brick_maps_refuses_on_the_card(engine, bad, match):
+    map_shape, vol_shape = SHAPES["ragged"]
+    shape = CoarseShape.of(map_shape, vol_shape)
+    occ = torch.from_numpy(case_map(map_shape, "random")).to(_dev(engine))
+    occ = {"int16": occ.to(torch.int16),
+           "strided": occ.transpose(1, 2).contiguous().transpose(1, 2),
+           "shape": occ[:, :-1].contiguous()}[bad]
+    with pytest.raises(ValueError, match=match):
+        frame_cuda.brick_maps(occ, shape, 40, True)
+
+
+@pytest.mark.parametrize("pose", POSES)
+def test_frame_equals_the_twin_maps_frame(engine, frames, pose):
+    """The kingsnake's frame with the kernel's map inputs equals the same
+    frame with the twin's, bit for bit."""
+    a, k = frames[pose]["body"]
+    got = sweep_frame._frame_body(*a, **k)
+    with _twin_maps():
+        want = sweep_frame._frame_body(*a, **k)
+    torch.cuda.synchronize()
+    _equal_frames(pose, got, want)
+
+
+@pytest.mark.parametrize("skipmode", [0, 1, 2, 3])
+@pytest.mark.parametrize("key", ["beetle", "beetle-grad"])
+def test_skipmode_frames_equal_the_twin_maps_frames(key, skipmode):
+    """The engine's frames at each skipmode (no map: the (1, 1, 1)
+    stand-in; the block map; the isotropic and the stitched octant
+    distance maps), intensity and gradient TF, three poses over the three
+    slice axes: one ``brick_maps`` call per K1 frame, and each frame equal
+    bit for bit to the frame drawn with the twin's map inputs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    eng, _, _, _ = make_engine(key, skipmode, 4, scale=0.5,
+                               benchmark_mode=False)
+    k1_frames = 0
+    for az, el in ((30.0, 20.0), (100.0, 20.0), (30.0, 70.0)):
+        cam = benchmark_camera(1.0, az, el)
+        eng.render(cam, 1024, 1024)
+        before = _launches()
+        k1 = sweep_bricks.LAUNCHES["sweep_bricks"]
+        got = eng.render(cam, 1024, 1024)
+        after = _launches()
+        n_k1 = sweep_bricks.LAUNCHES["sweep_bricks"] - k1
+        assert after["brick_maps"] - before["brick_maps"] == n_k1
+        k1_frames += n_k1
+        with _twin_maps():
+            want = eng.render(cam, 1024, 1024)
+        assert _launches()["brick_maps"] == after["brick_maps"]
+        _equal_frames((key, skipmode, az, el), got, want)
+    assert k1_frames >= 2

@@ -1,4 +1,5 @@
-// The w-grid frame's elementwise glue around K1 and K2, as three kernels.
+// The w-grid frame's glue around K1 and K2: three elementwise kernels, and
+// K1's map inputs in one call of two kernels.
 //
 // Replaces no TPU kernel: the JAX package leaves this glue to XLA, and the
 // port ran it as plain PyTorch, about 280 launches a frame and six
@@ -20,6 +21,11 @@
 //   and first-hit plane, and writes the (3, Hi, Wi) channel stack
 //   [lum, alpha, depth] that the warp reads; depth is the first hit's
 //   reverse-Z depth through proj_view_model (sweep_bricks.first_hit_depth).
+// * brick_maps_kernel, then brick_range_kernel: K1's map inputs from the
+//   (mp, mv, mu) u8 skip map (sweep_bricks.brick_maps_plain, about 40
+//   PyTorch launches on the card): the coarse leap map and the tight skip
+//   map, (mp, CVp, 128) u8 padded with 255, then the occupied brick range
+//   (2,) int32 from per-plane flags the first kernel leaves.
 //
 // Every per-pose float comes by value in FrameScalars (the 142 floats of
 // sweep_frame.pack_frame_scalars, under the 4 KB parameter limit), so a
@@ -29,6 +35,11 @@
 // 2432 x 2304, image 1200 x 1280) the least work is 118 MB of grid fields,
 // 19 MB of positions and 134 MB for the epilogue (the three maps in, the
 // stack out): 0.08 ms at 3.35 TB/s, a few tens of operations per cell.
+//
+// K1's map inputs are bound by bytes as well: at the kingsnake's map (199 x
+// 256 x 256 cells, factors 2 x 2) 13.0 MB read and 2 x 6.5 MB written, 6 us
+// at 3.35 TB/s; the map fits in the L2. They are integers: the kernels
+// give the plain version's bytes exactly.
 //
 // Rounding: the plain versions round after every PyTorch operation, so
 // every multiply, add and divide here is an explicit round-to-nearest
@@ -52,6 +63,18 @@ struct FrameScalars {
   int p_axis, sgn;       // the slice axis, the sweep's sign (+-1)
   int warp;              // 0: two-pass A, 1: two-pass B, 2: single-pass
   float kappa_scale;     // f32(dim_max) / f32(n_slabs)
+};
+
+// K1's map inputs' launch scalars (sweep_bricks.CoarseShape); mirrored
+// field for field by cuda_build.BrickMapParams.
+struct BrickMapParams {
+  int mp, mv, mu;        // the skip map's planes, rows, columns
+  int CV, CU, CVp;       // coarse rows and columns; rows padded
+  int factor_v, factor_u;  // map cells per coarse cell along v, u
+  int mp_span;           // map planes past m that the tight map spans
+  int bp_p, Np, n_slabs; // voxel planes per map plane; volume planes; slabs
+  int dist_leap;         // 0: the leap map clamped to {0, 1}
+  float ds;              // f32(1 / n_slabs)
 };
 
 namespace {
@@ -377,6 +400,154 @@ frame_epilogue_kernel(const FrameScalars f, const float* __restrict__ lum,
   chans[2 * cells + e] = hit ? div(z, w == 0.0f ? 1.0f : w) : 0.0f;
 }
 
+constexpr int kLanes = 128;        // coarse columns, padded (TILE_W)
+constexpr int kMapRows = 4;        // coarse rows a block of brick_maps owns
+constexpr int kMinRun = 16;        // map planes a block of brick_maps owns:
+constexpr int kMaxRun = 64;        // at least kMinRun, at most kMaxRun
+constexpr int kBrick = 8;          // slabs per brick (sweep_bricks.BRICK)
+constexpr int kRangeThreads = 256;
+constexpr int kMaxMapPlanes = 32768;  // brick_range's shared flags
+
+// The coarse cell (m, cv, cu): MIN over its factor_v x factor_u map cells
+// that lie inside the map (the plain version pads with 255, which never
+// lowers the MIN). PAIRS: factor_u 2 and the rows' pairs 2-byte aligned,
+// so each row's pair is one load.
+template <bool PAIRS>
+__device__ __forceinline__ unsigned pool_cell(const uint8_t* __restrict__ occ,
+                                              const BrickMapParams& p, int m,
+                                              int cv, int cu) {
+  const int v0 = cv * p.factor_v, v1 = min(v0 + p.factor_v, p.mv);
+  const int u0 = cu * p.factor_u, u1 = min(u0 + p.factor_u, p.mu);
+  unsigned c = 255;
+  for (int v = v0; v < v1; ++v) {
+    const uint8_t* row = occ + ((size_t)m * p.mv + v) * p.mu;
+    if (PAIRS) {
+      const unsigned w = __ldg(reinterpret_cast<const uint16_t*>(row + u0));
+      c = min(c, min(w & 0xffu, w >> 8));
+    } else {
+      for (int u = u0; u < u1; ++u) c = min(c, (unsigned)__ldg(row + u));
+    }
+  }
+  return c;
+}
+
+// The leap map and the tight skip map of coarse rows [blockIdx.x *
+// kMapRows, + kMapRows), every column, map planes [m0, m1). A thread owns
+// one (row, column) and walks the planes downwards from the run's halo
+// (the mp_span planes past m1), pooling each plane's cell once: the leap
+// map is the cell min'd with the plane above it (CoarseMap.pair), the
+// tight map 0 iff a plane in [m, m + mp_span] holds a 0 (the nearest such
+// plane kept as it walks). Rows and columns past the map's write 255. The
+// walk has no barrier, so its planes' loads overlap: each thread keeps a
+// bit per owned plane (run <= kMaxRun) that its cell holds a 0, and the
+// block ORs them once at the end into flags (CVp / kMapRows, mp), which
+// brick_range_kernel reduces. Grid (CVp / kMapRows, ceil(mp / run)), block
+// (kLanes, kMapRows).
+template <bool PAIRS>
+__global__ void __launch_bounds__(kLanes * kMapRows)
+brick_maps_kernel(const uint8_t* __restrict__ occ, const BrickMapParams p,
+                  int run, uint8_t* __restrict__ coarse,
+                  uint8_t* __restrict__ cskip, uint8_t* __restrict__ flags) {
+  __shared__ unsigned long long held_w[kLanes * kMapRows / 32];
+  const int cu = threadIdx.x, cv = blockIdx.x * kMapRows + threadIdx.y;
+  const bool cell = cv < p.CV && cu < p.CU;
+  const int m0 = blockIdx.y * run, m1 = min(m0 + run, p.mp);
+  const int top = min(m1 + max(p.mp_span, 1), p.mp) - 1;
+  int next_zero = 0x7fffffff;      // the nearest plane >= m holding a 0
+  unsigned above = 255;            // the cell of plane m + 1
+  unsigned long long held = 0;     // bit m - m0: owned plane m holds a 0
+#pragma unroll 4
+  for (int m = top; m >= m0; --m) {
+    unsigned c = 255;
+    if (cell) {
+      c = pool_cell<PAIRS>(occ, p, m, cv, cu);
+      if (!p.dist_leap) c = min(c, 1u);
+      if (c == 0) next_zero = m;
+    }
+    if (m < m1) {
+      const size_t e = ((size_t)m * p.CVp + cv) * kLanes + cu;
+      coarse[e] = cell ? (uint8_t)(m + 1 < p.mp ? min(c, above) : c) : 255;
+      cskip[e] = cell ? (next_zero - m <= p.mp_span ? 0 : 1) : 255;
+      if (cell && c == 0) held |= 1ull << (m - m0);
+    }
+    above = c;
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    held |= __shfl_xor_sync(0xffffffffu, held, o);
+  const int t = threadIdx.y * kLanes + threadIdx.x;
+  if (t % 32 == 0) held_w[t / 32] = held;
+  __syncthreads();
+  if (t < m1 - m0) {
+    unsigned long long h = 0;
+#pragma unroll
+    for (int w = 0; w < kLanes * kMapRows / 32; ++w) h |= held_w[w];
+    flags[(size_t)blockIdx.x * p.mp + m0 + t] = (h >> t) & 1;
+  }
+}
+
+// The occupied brick range (sweep_bricks.occupied_slabs and kb_occ): per
+// slab k its map planes from occupied_slabs' float32 chain ((k + 0.5) * ds)
+// * Np - 0.5, each step rounded, floored and clamped; the first and the
+// last brick with a slab whose planes hold a 0, else [n_bricks, -1]. One
+// block; dynamic shared memory mp bytes.
+__global__ void __launch_bounds__(kRangeThreads)
+brick_range_kernel(const uint8_t* __restrict__ flags, int bands,
+                   const BrickMapParams p, int* __restrict__ kb_occ) {
+  extern __shared__ uint8_t held[];          // per map plane: holds a 0
+  __shared__ int lo_w[kRangeThreads / 32], hi_w[kRangeThreads / 32];
+  for (int m = threadIdx.x; m < p.mp; m += kRangeThreads) {
+    uint8_t h = 0;
+    for (int b = 0; b < bands; ++b) h |= flags[(size_t)b * p.mp + m];
+    held[m] = h;
+  }
+  __syncthreads();
+  const int n_bricks = (p.n_slabs + kBrick - 1) / kBrick;
+  int lo = n_bricks, hi = -1;
+  for (int k = threadIdx.x; k < p.n_slabs; k += kRangeThreads) {
+    const float z = sub(mul(mul(add((float)k, 0.5f), p.ds), (float)p.Np),
+                        0.5f);
+    const long long k0 = min(max((long long)floorf(z), 0LL),
+                             (long long)p.Np - 2);
+    const long long ma = min(k0 / p.bp_p, (long long)p.mp - 1);
+    const long long mb = min((k0 + 1) / p.bp_p, (long long)p.mp - 1);
+    if (held[ma] | held[mb]) {
+      lo = min(lo, k / kBrick);
+      hi = max(hi, k / kBrick);
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+    hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+  }
+  const int warp = threadIdx.x / 32;
+  if (threadIdx.x % 32 == 0) {
+    lo_w[warp] = lo;
+    hi_w[warp] = hi;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int w = 1; w < kRangeThreads / 32; ++w) {
+      lo = min(lo, lo_w[w]);
+      hi = max(hi, hi_w[w]);
+    }
+    kb_occ[0] = lo;
+    kb_occ[1] = hi;
+  }
+}
+
+bool maps_ok(const BrickMapParams& p) {
+  return p.mp > 0 && p.mv > 0 && p.mu > 0 && p.mp <= kMaxMapPlanes &&
+         p.factor_v > 0 && p.factor_u > 0 && p.CV > 0 && p.CU > 0 &&
+         p.CU <= kLanes && p.CVp >= p.CV && p.CVp % kMapRows == 0 &&
+         (long long)p.CV * p.factor_v >= p.mv &&
+         (long long)(p.CV - 1) * p.factor_v < p.mv &&
+         (long long)p.CU * p.factor_u >= p.mu &&
+         (long long)(p.CU - 1) * p.factor_u < p.mu && p.mp_span >= 0 &&
+         p.bp_p > 0 && p.Np >= 2 && p.n_slabs > 0;
+}
+
 bool grid_ok(const FrameScalars& f) {
   return f.Hi > 0 && f.Wi > 0 && f.Hi <= 65535 && f.row0 >= 0 &&
          f.p_axis >= 0 && f.p_axis <= 2 && (f.sgn == 1 || f.sgn == -1);
@@ -453,5 +624,35 @@ extern "C" int vkv_frame_epilogue(const void* lum, const void* alpha,
   else if (f.p_axis == 1) VKV_LAUNCH(1);
   else VKV_LAUNCH(2);
 #undef VKV_LAUNCH
+  return (int)cudaGetLastError();
+}
+
+// K1's map inputs from the (mp, mv, mu) u8 map occ: coarse and cskip
+// (mp, CVp, 128) u8, kb_occ (2,) int32; flags, (CVp / 4, mp) u8, is
+// scratch that the first kernel fills whole. Two launches, no copy.
+extern "C" int vkv_brick_maps(const void* occ, void* coarse, void* cskip,
+                              void* flags, void* kb_occ, BrickMapParams p,
+                              void* stream) {
+  if (!maps_ok(p)) return (int)cudaErrorInvalidValue;
+  // Enough planes a block that the halo (mp_span planes) stays a small
+  // share of its reads, and one bit of a 64-bit mask each.
+  const int run = min(kMaxRun, max(kMinRun, 4 * p.mp_span));
+  const int runs = (p.mp + run - 1) / run, bands = p.CVp / kMapRows;
+  if (runs > 65535) return (int)cudaErrorInvalidConfiguration;
+  const bool pairs = p.factor_u == 2 && p.mu % 2 == 0 &&
+                     reinterpret_cast<uintptr_t>(occ) % 2 == 0;
+  const dim3 grid(bands, runs), block(kLanes, kMapRows);
+  const cudaStream_t st = (cudaStream_t)stream;
+  const uint8_t* in = (const uint8_t*)occ;
+  if (pairs)
+    brick_maps_kernel<true><<<grid, block, 0, st>>>(
+        in, p, run, (uint8_t*)coarse, (uint8_t*)cskip, (uint8_t*)flags);
+  else
+    brick_maps_kernel<false><<<grid, block, 0, st>>>(
+        in, p, run, (uint8_t*)coarse, (uint8_t*)cskip, (uint8_t*)flags);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  brick_range_kernel<<<1, kRangeThreads, p.mp, st>>>(
+      (const uint8_t*)flags, bands, p, (int*)kb_occ);
   return (int)cudaGetLastError();
 }

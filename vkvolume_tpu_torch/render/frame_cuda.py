@@ -1,18 +1,22 @@
-"""The w-grid frame's glue around K1 and K2 on the card — three launches of
-``csrc/frame_glue.cu``, computed from the pose's scalars passed by value:
+"""The w-grid frame's glue around K1 and K2 on the card — four calls of
+``csrc/frame_glue.cu``, the first three computed from the pose's scalars
+passed by value:
 
 * ``frame_grid``: the w-grid fields K1 reads, (wu, wv, s_lo, s_hi, kappa,
   cov);
 * ``frame_positions``: the warp's positions (``Positions``) of the
   image's own pixel rays;
 * ``frame_epilogue``: the (3, Hi, Wi) channel stack [lum, alpha, depth]
-  from K1's outputs.
+  from K1's outputs;
+* ``brick_maps``: K1's map inputs from the skip map (the coarse leap map,
+  the tight skip map and the occupied brick range), two kernels.
 
 The JAX package leaves this glue to XLA, so the kernels mirror no Pallas
 kernel. These launchers take CUDA devices only, or raise; the frame calls
-them through ``sweep_frame``'s functions of the same names, which run the
-plain twins beside them there (``grid_plain``, ``positions_plain``,
-``epilogue_plain``) on CPU tensors. ``LAUNCHES`` counts their launches,
+them through ``sweep_frame``'s functions of the same names (the first
+three) and ``sweep_bricks.brick_maps``, which run the plain twins beside
+them there (``grid_plain``, ``positions_plain``, ``epilogue_plain``,
+``brick_maps_plain``) on CPU tensors. ``LAUNCHES`` counts their calls,
 one of each per K1 frame on the card.
 """
 
@@ -29,11 +33,15 @@ import torch
 from ..utils import cuda_build, timing
 from .ray_setup import N_PACKED
 
-LAUNCHES = {"frame_grid": 0, "frame_positions": 0, "frame_epilogue": 0}
+LAUNCHES = {"frame_grid": 0, "frame_positions": 0, "frame_epilogue": 0,
+            "brick_maps": 0}
 # The warps whose positions ``frame_positions`` writes: the two-pass warp's
 # variants and the single-pass warp (K8, whose (gx, gy) the gather warp
 # reads too); the index is the kernel's.
 WARPS = ("A", "B", "K8")
+# Coarse rows a block of the map kernel owns (kMapRows): the rows of its
+# per-plane flags.
+MAP_ROWS = 4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -163,3 +171,30 @@ def frame_epilogue(geom: FrameGeometry, lum: torch.Tensor,
             chans.data_ptr(), scalars, cuda_build.stream()),
             "frame_epilogue")
     return chans
+
+
+def brick_maps(occupancy_t: torch.Tensor, shape, n_slabs: int,
+               dist_leap: bool) -> tuple:
+    """K1's map inputs from a contiguous u8 CUDA skip map, one call (two
+    kernels): ``coarse`` and ``cskip``, (mp, CVp, 128) u8 each, and
+    ``kb_occ`` (2,) int32, the bytes ``sweep_bricks.brick_maps_plain``
+    computes. ``shape`` is the map's ``sweep_bricks.CoarseShape``."""
+    cuda_build.require_cuda("occupancy_t", occupancy_t, torch.uint8,
+                            (shape.mp, shape.mv, shape.mu))
+    dev = occupancy_t.device
+    maps = torch.empty((2, shape.mp, shape.CVp, 128), dtype=torch.uint8,
+                       device=dev)
+    flags = torch.empty((shape.CVp // MAP_ROWS, shape.mp),
+                        dtype=torch.uint8, device=dev)
+    kb_occ = torch.empty(2, dtype=torch.int32, device=dev)
+    params = cuda_build.BrickMapParams(
+        shape.mp, shape.mv, shape.mu, shape.CV, shape.CU, shape.CVp,
+        shape.factor_v, shape.factor_u, shape.mp_span(n_slabs), shape.bp_p,
+        shape.Np, n_slabs, int(bool(dist_leap)),
+        float(np.float32(1.0 / n_slabs)))
+    with timing.kernel(LAUNCHES, "brick_maps"):
+        cuda_build.check(cuda_build.load_kernels().vkv_brick_maps(
+            occupancy_t.data_ptr(), maps[0].data_ptr(), maps[1].data_ptr(),
+            flags.data_ptr(), kb_occ.data_ptr(), params,
+            cuda_build.stream()), "brick_maps")
+    return maps[0], maps[1], kb_occ

@@ -10,9 +10,12 @@ pixels' ray bounds), so it is computed once per tile; that keeps the set of
 sampled bricks, and with it the sample counts and first-hit planes, equal
 to the TPU kernel's.
 
-* ``grid_fields`` and ``brick_inputs`` (the coarse leap map, the tight
-  skip map and the occupied brick range) are plain PyTorch, as the JAX
-  package left them to XLA.
+* ``grid_fields`` is plain PyTorch, as the JAX package left it to XLA
+  (the frame computes it with ``frame_cuda.frame_grid`` on the card).
+  ``brick_inputs`` gathers K1's inputs: its map inputs (the coarse leap
+  map, the tight skip map and the occupied brick range, ``brick_maps``)
+  come from one kernel on the card (``frame_cuda.brick_maps``) and from
+  their plain twin (``brick_maps_plain``) on the CPU.
 * ``sweep_bricks_kernel`` is K1 (csrc/sweep_bricks.cu) in two launches:
   ``brick_walk`` writes each tile's visited bricks to a list, and
   ``sweep_bricks_composite`` composites every pixel over its tile's list.
@@ -59,6 +62,7 @@ import torch
 
 from ..tf.transfer_function import TFParams, texel_alpha, truncate_alpha
 from ..utils import cuda_build, timing
+from . import frame_cuda
 from .ray_setup import _SLICE_AXES, FrameUniforms, RenderOutput
 
 TILE_W = 128
@@ -152,16 +156,17 @@ def n_steps_max(dim_max: int, sampling_factor: float) -> float:
 
 
 @dataclasses.dataclass(frozen=True)
-class CoarseMap:
-    """The coarse 2-D skip map both sweeps read (K1 and K7; as
-    ``_sweep_bricks_jit`` and ``_sweep_pallas_jit`` build it): the
-    (mp, mv, mu) map pooled by MIN into cells of at least 8 voxels along v
-    and at most 128 columns along u, so that one (16, 128) window covers a
-    tile's footprint. 0 = occupied; with ``dist_leap`` the values are
-    Chebyshev distances (multi-plane leaps), else clamped to {0, 1}."""
-    coarse: torch.Tensor       # (mp, CV, CU), the map's dtype
-    mp: int
-    CV: int
+class CoarseShape:
+    """The coarse maps' geometry, a function of the (mp, mv, mu) skip map's
+    and the (Np, Sv, Su) volume's shapes alone: the map pooled by MIN into
+    cells of at least 8 voxels along v and at most 128 columns along u, so
+    that one (16, 128) window covers a tile's footprint. Both routes to
+    K1's map inputs read it (``brick_maps_plain`` and the kernel,
+    ``frame_cuda.brick_maps``), and K7's ``CoarseMap`` with them."""
+    mp: int                    # the skip map's planes, rows, columns
+    mv: int
+    mu: int
+    CV: int                    # coarse rows and columns
     CU: int
     CVp: int                   # rows padded: >= 16, a multiple of 8
     bp_p: int                  # voxels per map cell along p, v, u
@@ -174,24 +179,62 @@ class CoarseMap:
     Su: int
 
     @classmethod
-    def build(cls, occupancy_t: torch.Tensor, vol_shape, dist_leap: bool):
+    def of(cls, map_shape, vol_shape) -> CoarseShape:
+        """The geometry of a ``map_shape`` map over a ``vol_shape``
+        volume, both transposed for the slice axis."""
         Np, Sv, Su = vol_shape
-        mp, mv, mu = occupancy_t.shape
+        mp, mv, mu = map_shape
         bp_v = -(-Sv // mv)
         bp_u = -(-Su // mu)
         factor_v = max(1, -(-8 // bp_v))
         factor_u = max(-(-mu // 128), max(1, -(-8 // bp_u)))
         CV = -(-mv // factor_v)
-        CU = -(-mu // factor_u)
-        dmap = occupancy_t if dist_leap else torch.clamp(occupancy_t, max=1)
-        dmap_pad = torch.nn.functional.pad(
-            dmap, (0, CU * factor_u - mu, 0, CV * factor_v - mv), value=255)
-        coarse = dmap_pad.reshape(mp, CV, factor_v, CU, factor_u).amin(
-            dim=(2, 4))
-        return cls(coarse=coarse, mp=mp, CV=CV, CU=CU,
+        return cls(mp=mp, mv=mv, mu=mu, CV=CV, CU=-(-mu // factor_u),
                    CVp=max(16, -(-CV // 8) * 8), bp_p=-(-Np // mp),
                    bp_v=bp_v, bp_u=bp_u, factor_v=factor_v,
                    factor_u=factor_u, Np=Np, Sv=Sv, Su=Su)
+
+    def mp_span(self, n_slabs: int) -> int:
+        """The map planes past plane m that one brick's slabs touch: the
+        tight skip map's span."""
+        return -(-(planes_per_brick(self.Np, n_slabs) - 1) // self.bp_p)
+
+    def scalars(self) -> dict:
+        """The window and leap-rate launch scalars (float32 values)."""
+        return dict(
+            inv_cvox_v=_f32(1.0 / (self.factor_v * self.bp_v)),
+            inv_cvox_u=_f32(1.0 / (self.factor_u * self.bp_u)),
+            # map cells drifted per map plane at |w| = 1
+            drift_u=_f32(self.Su * self.bp_p / (self.Np * self.bp_u)),
+            drift_v=_f32(self.Sv * self.bp_p / (self.Np * self.bp_v)))
+
+
+@dataclasses.dataclass(frozen=True)
+class CoarseMap(CoarseShape):
+    """The coarse 2-D skip map both sweeps read (K1 and K7; as
+    ``_sweep_bricks_jit`` and ``_sweep_pallas_jit`` build it): the map
+    pooled by MIN into ``CoarseShape``'s cells. 0 = occupied; with
+    ``dist_leap`` the values are Chebyshev distances (multi-plane leaps),
+    else clamped to {0, 1}."""
+    coarse: torch.Tensor       # (mp, CV, CU), the map's dtype
+
+    @classmethod
+    def build(cls, occupancy_t: torch.Tensor, vol_shape, dist_leap: bool):
+        return cls.pool(occupancy_t,
+                        CoarseShape.of(occupancy_t.shape, vol_shape),
+                        dist_leap)
+
+    @classmethod
+    def pool(cls, occupancy_t: torch.Tensor, s: CoarseShape,
+             dist_leap: bool):
+        """The map ``occupancy_t`` pooled into the cells of ``s``."""
+        dmap = occupancy_t if dist_leap else torch.clamp(occupancy_t, max=1)
+        dmap_pad = torch.nn.functional.pad(
+            dmap, (0, s.CU * s.factor_u - s.mu, 0, s.CV * s.factor_v - s.mv),
+            value=255)
+        coarse = dmap_pad.reshape(s.mp, s.CV, s.factor_v, s.CU,
+                                  s.factor_u).amin(dim=(2, 4))
+        return cls(coarse=coarse, **dataclasses.asdict(s))
 
     def pair(self) -> torch.Tensor:
         """The leap map: pre-min'd with the next plane (a slab between
@@ -204,15 +247,6 @@ class CoarseMap:
         return torch.nn.functional.pad(
             a, (0, TILE_W - self.CU, 0, self.CVp - self.CV),
             value=255).to(torch.uint8).contiguous()
-
-    def scalars(self) -> dict:
-        """The window and leap-rate launch scalars (float32 values)."""
-        return dict(
-            inv_cvox_v=_f32(1.0 / (self.factor_v * self.bp_v)),
-            inv_cvox_u=_f32(1.0 / (self.factor_u * self.bp_u)),
-            # map cells drifted per map plane at |w| = 1
-            drift_u=_f32(self.Su * self.bp_p / (self.Np * self.bp_u)),
-            drift_v=_f32(self.Sv * self.bp_p / (self.Np * self.bp_v)))
 
 
 def occupied_slabs(occupancy_t: torch.Tensor, Np: int, n_slabs: int,
@@ -229,6 +263,45 @@ def occupied_slabs(occupancy_t: torch.Tensor, Np: int, n_slabs: int,
     ne = (nonempty_m[(k0s // bp_p).clamp(0, mp - 1)]
           | nonempty_m[((k0s + 1) // bp_p).clamp(0, mp - 1)])
     return ks, ne
+
+
+def brick_maps_plain(occupancy_t: torch.Tensor, shape: CoarseShape,
+                     n_slabs: int, dist_leap: bool) -> tuple:
+    """Plain version of ``frame_cuda.brick_maps``: K1's map inputs from
+    the (mp, mv, mu) skip map. ``coarse``, the leap map (``CoarseMap``'s
+    pooled map min'd with the next plane), and ``cskip``, the tight skip
+    map, both (mp, CVp, 128) u8 padded with 255, and ``kb_occ``, the
+    globally occupied brick range (2,) int32 ([n_bricks, -1] when no slab
+    is occupied)."""
+    cm = CoarseMap.pool(occupancy_t, shape, dist_leap)
+    mp, CV, CU = cm.mp, cm.CV, cm.CU
+
+    # Tight skip map: cskip[m] == 0 iff an occupied cell lies in map planes
+    # [m, m + mp_span] (the plane span one brick covers).
+    cbin = torch.clamp(cm.coarse, max=1)
+    cskip = cbin
+    for s in range(1, shape.mp_span(n_slabs) + 1):
+        fill = torch.full((min(s, mp), CV, CU), 255, dtype=cbin.dtype,
+                          device=occupancy_t.device)
+        cskip = torch.minimum(cskip, torch.cat([cbin[s:], fill])[:mp])
+
+    # Globally occupied brick range.
+    n_bricks = -(-n_slabs // BRICK)
+    ks, ne = occupied_slabs(occupancy_t, shape.Np, n_slabs, shape.bp_p)
+    kb_i = ks // BRICK
+    kb_occ = torch.stack([
+        torch.where(ne, kb_i, n_bricks).amin(),
+        torch.where(ne, kb_i, -1).amax()]).to(torch.int32)
+    return cm.pad(cm.pair()), cm.pad(cskip), kb_occ
+
+
+def brick_maps(occupancy_t: torch.Tensor, shape: CoarseShape, n_slabs: int,
+               dist_leap: bool) -> tuple:
+    """K1's map inputs (coarse, cskip, kb_occ; ``brick_maps_plain``). A
+    CPU map runs the plain version; a CUDA one launches the kernel."""
+    if occupancy_t.device.type == "cpu":
+        return brick_maps_plain(occupancy_t, shape, n_slabs, dist_leap)
+    return frame_cuda.brick_maps(occupancy_t, shape, n_slabs, dist_leap)
 
 
 def planes_per_brick(Np: int, n_slabs: int) -> int:
@@ -263,49 +336,30 @@ def brick_inputs(vol_t: torch.Tensor, occupancy_t: torch.Tensor,
         raise ValueError(f"volume too shallow for the brick sweep: {Np}")
     if tile_h not in TILE_HS or H % tile_h or W % TILE_W:
         raise ValueError(f"grid {H}x{W} does not tile by {tile_h}x{TILE_W}")
-    dev = vol_t.device
     v_ax, u_ax = _SLICE_AXES[p_axis]
     o = np.asarray(uniforms.cam_pos_tex, np.float32)
 
-    cm = CoarseMap.build(occupancy_t, (Np, Sv, Su), dist_leap)
-    mp, CV, CU, CVp, bp_p = cm.mp, cm.CV, cm.CU, cm.CVp, cm.bp_p
-
-    # Tight skip map: cskip[m] == 0 iff an occupied cell lies in map planes
-    # [m, m + mp_span] (the plane span one brick covers).
-    mp_span = -(-(PLANES - 1) // bp_p)
-    cbin = torch.clamp(cm.coarse, max=1)
-    cskip = cbin
-    for s in range(1, mp_span + 1):
-        fill = torch.full((min(s, mp), CV, CU), 255, dtype=cbin.dtype,
-                          device=dev)
-        cskip = torch.minimum(cskip, torch.cat([cbin[s:], fill])[:mp])
-
-    # Globally occupied brick range.
+    shape = CoarseShape.of(occupancy_t.shape, (Np, Sv, Su))
+    coarse, cskip, kb_occ = brick_maps(occupancy_t, shape, n_slabs,
+                                       dist_leap)
     ds = _f32(1.0 / n_slabs)
-    n_bricks = -(-n_slabs // BRICK)
-    ks, ne = occupied_slabs(occupancy_t, Np, n_slabs, bp_p)
-    kb_i = ks // BRICK
-    kb_occ = torch.stack([
-        torch.where(ne, kb_i, n_bricks).amin(),
-        torch.where(ne, kb_i, -1).amax()]).to(torch.int32)
-
     params = dict(
-        Np=Np, Sv=Sv, Su=Su, H=H, W=W, tile_h=tile_h, bp_p=bp_p, CV=CV,
-        CU=CU, CVp=CVp, mp=mp, n_slabs=n_slabs, sgn=1 if sgn > 0 else -1,
+        Np=Np, Sv=Sv, Su=Su, H=H, W=W, tile_h=tile_h, bp_p=shape.bp_p,
+        CV=shape.CV, CU=shape.CU, CVp=shape.CVp, mp=shape.mp,
+        n_slabs=n_slabs, sgn=1 if sgn > 0 else -1,
         ert=int(bool(ert)), count_samples=int(bool(count_samples)),
         aligned=int(n_slabs == Np), use_gradient=int(use_gradient),
         texture_tf=int(bool(texture_tf)), o_u=float(o[u_ax]),
         o_v=float(o[v_ax]), o_p=float(o[p_axis]), ds=ds,
         imin=tf.intensity_min, iinv=tf.intensity_range_inv,
         vaf=tf.voxel_alpha_factor,
-        gmin=tf.gradient_min, ginv=tf.gradient_range_inv, **cm.scalars())
+        gmin=tf.gradient_min, ginv=tf.gradient_range_inv, **shape.scalars())
     f = torch.float32
     return BrickInputs(
         wu=wu.to(f).contiguous(), wv=wv.to(f).contiguous(),
         s_lo=s_lo.to(f).contiguous(), s_hi=s_hi.to(f).contiguous(),
         kappa=kappa.to(f).contiguous(), cov=covered.contiguous(),
-        coarse=cm.pad(cm.pair()), cskip=cm.pad(cskip),
-        vol=vol_t.contiguous(),
+        coarse=coarse, cskip=cskip, vol=vol_t.contiguous(),
         grad=grad_t.contiguous() if use_gradient else None, kb_occ=kb_occ,
         params=params)
 

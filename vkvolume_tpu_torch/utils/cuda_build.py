@@ -94,6 +94,15 @@ class FrameScalars(ctypes.Structure):
         ("kappa_scale", ctypes.c_float)]
 
 
+class BrickMapParams(ctypes.Structure):
+    """Mirror of ``BrickMapParams`` in csrc/frame_glue.cu (field order and
+    types must match)."""
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "mp", "mv", "mu", "CV", "CU", "CVp", "factor_v", "factor_u",
+        "mp_span", "bp_p", "Np", "n_slabs", "dist_leap")] + [
+        ("ds", ctypes.c_float)]
+
+
 _SIGNATURES = {
     # (occ, out4, Z, Y, X, cap, stream)
     "vkv_scan_relax4": [_P, _P, _I, _I, _I, _I, _P],
@@ -127,6 +136,8 @@ _SIGNATURES = {
     "vkv_frame_positions": [_P] * 4 + [FrameScalars, _P],
     # (lum, alpha, firsts, chans, scalars, stream)
     "vkv_frame_epilogue": [_P] * 4 + [FrameScalars, _P],
+    # (occ, coarse, cskip, flags, kb_occ, params, stream)
+    "vkv_brick_maps": [_P] * 5 + [BrickMapParams, _P],
 }
 
 
